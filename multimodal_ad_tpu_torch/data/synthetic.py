@@ -1,0 +1,72 @@
+"""Seeded synthetic ADNI-like volumes for tests and chip_smoke.py (own copy
+of the TPU package's data/synthetic.py:21-77).
+
+The label CSV is written with the csv module, so the serving path needs no
+pandas.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+
+import numpy as np
+
+from ..utils import nifti
+
+
+def make_volume(rng: np.random.Generator, shape=(91, 109, 91), label: int = 0,
+                extent_jitter: float = 0.0, center_jitter: float = 0.0,
+                noise: float = 0.05):
+    """Structured random volume: a smooth blob whose intensity/extent
+    depends weakly on the class label, plus voxel noise.
+
+    With the default jitters of 0 every volume of a class is identical up
+    to voxel noise; `extent_jitter` / `center_jitter` add per-sample
+    variation. Draws from `rng` in the same order as the TPU package, so
+    one seed gives the same volume in both."""
+    coords = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in shape],
+                         indexing="ij")
+    if center_jitter:
+        shifts = rng.normal(0, center_jitter, size=3)
+        coords = [c - s for c, s in zip(coords, shifts)]
+    r2 = sum(c ** 2 for c in coords)
+    extent = 3.0 + 0.8 * label
+    if extent_jitter:
+        extent += rng.normal(0, extent_jitter)
+    base = np.exp(-r2 * extent).astype(np.float32)
+    vnoise = rng.normal(0, noise, shape).astype(np.float32)
+    return (base * (200.0 + 40.0 * label) + vnoise * 20.0).astype(np.float32)
+
+
+def make_adni_dir(root: str, n_per_class=4, classes=("AD", "CN"),
+                  shape=(24, 28, 24), seed: int = 0, gz: bool = False,
+                  pet: bool = False, **volume_kw):
+    """Write a miniature ADNI dataset: label CSV + per-subject NIfTI files.
+    Returns (label_csv_path, mri_dir) or (csv, mri_dir, pet_dir) with
+    pet=True. Extra kwargs pass through to make_volume."""
+    rng = np.random.default_rng(seed)
+    mri_dir = os.path.join(root, "MRI")
+    os.makedirs(mri_dir, exist_ok=True)
+    pet_dir = os.path.join(root, "PET")
+    if pet:
+        os.makedirs(pet_dir, exist_ok=True)
+    rows = []
+    ext = ".nii.gz" if gz else ".nii"
+    for ci, group in enumerate(classes):
+        for k in range(n_per_class):
+            subject = f"{group}_{k:03d}"
+            vol = make_volume(rng, shape, label=ci, **volume_kw)
+            nifti.save(os.path.join(mri_dir, subject + ext), vol)
+            if pet:
+                pvol = make_volume(rng, shape, label=ci, **volume_kw) * 0.5
+                nifti.save(os.path.join(pet_dir, subject + ext), pvol)
+            rows.append((subject, group))
+    csv_path = os.path.join(root, "labels.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Subject_ID", "Group"])
+        w.writerows(rows)
+    if pet:
+        return csv_path, mri_dir, pet_dir
+    return csv_path, mri_dir

@@ -7,7 +7,8 @@ NVIDIA GPU.
 Phases (any failure ends the run with a non-zero exit, nothing is caught):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build K1 (csrc/fused_gather.cu) with nvcc for sm_90a, timed;
+2. build K1 (csrc/fused_gather.cu) and K2 (csrc/roi_pool.cu) with nvcc
+   for sm_90a, in parallel, timed;
 3. K1 against its plain PyTorch version on the card: 32 full-size
    91x109x91 volumes in uint8, int16 (with negatives) and float32,
    repeated indices and one constant volume, f32 and bf16 output, int32
@@ -19,7 +20,22 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    logits on the card against the same on the host CPU; vols/s;
 5. resident corpus: DeviceDataset(quantize="uint8") of 32 volumes,
    gather_normalized by index, 5-fold forward at batch 8 and 32; vols/s;
-6. one JSON line {"kernels": [...]} and, last, the device line.
+6. K2 against its plain PyTorch version computed in float64 on the card:
+   (8, 91, 109, 91, 64) float32 and bfloat16 features over a 166-ROI
+   synthetic atlas with AAL-like sparse ids, compacted, with background and
+   one ROI emptied; (1, 182, 218, 182, 64) float32 over 600 ROIs (the 1-mm
+   grid); rtol 1e-5, atol 1e-6, and two launches bit-identical; then its
+   time (as K1's) beside its bound, the plain version's and the
+   `index_add_` library call's;
+7. ROI extraction: a 50-subject dataset at 91x109x91, the atlas as NIfTI +
+   JSON LUT, `cli.extract_features` on the card at full width (UNet3D
+   64/128/256/512, float32, batch 8; the seed-42 test split is 10 subjects,
+   batches 8 + 2): K1 and K2 launched, CSV shapes, finite values, a second
+   run byte-identical; a narrow U-Net on the card against the host CPU on a
+   full-size volume (ROI means within rtol = atol = 1e-3); subjects/s, the
+   time split of a batch (upload, K1, forward, K2, copy back, CSV write),
+   the cost of deterministic cuDNN, peak memory, and a profile;
+8. one JSON line {"kernels": [...]} and, last, the device line.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -36,6 +52,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 VOL_SHAPE = (91, 109, 91)
@@ -50,6 +68,13 @@ F32_OPS_PER_S = 67e12
 K1_OPS_PER_VOXEL = 4  # min, max, subtract, multiply
 K1_REPLACES = "multimodal_ad_tpu/ops/fused_gather.py:63"
 K1_SOURCE = "multimodal_ad_tpu_torch/csrc/fused_gather.cu"
+K2_REPLACES = "multimodal_ad_tpu/ops/roi_pool.py:94"
+K2_SOURCE = "multimodal_ad_tpu_torch/csrc/roi_pool.cu"
+N_ROIS = 166  # the 2-mm AAL grid
+N_ROIS_1MM = 600
+SHAPE_1MM = (182, 218, 182)
+ROI_CH = 64  # the U-Net's pre-head width
+N_SUBJECTS = 50  # seed-42 test split of 0.2: 10 subjects, batches 8 + 2
 
 
 def log(msg=""):
@@ -69,6 +94,17 @@ def k1_bound_ms(batch, src_bytes, out_bytes, idx_bytes):
     ops = batch * VOX * K1_OPS_PER_VOXEL
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound_ms(atlas, batch, channels, elem_bytes):
+    """Least time for K2's work: the labelled voxels' features read once
+    (background is never read), the voxel order and segment offsets read
+    once, the output written once. One add per element read is far below
+    the float32 rate, so bytes bound it."""
+    m = atlas.order.numel()
+    moved = (batch * m * channels * elem_bytes + 4 * (m + atlas.num_rois + 1)
+             + 4 * batch * atlas.num_rois * channels)
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
 
 
 def time_cuda(torch, fn, reps=25, flush=None):
@@ -94,6 +130,34 @@ def time_cuda(torch, fn, reps=25, flush=None):
     return statistics.median(times)
 
 
+def sparse_aal_ids(n):
+    """n ROI ids that skip some, as AAL3's do (35, 36, 81, 82)."""
+    ids, i = [], 1
+    while len(ids) < n:
+        if i not in (35, 36, 81, 82):
+            ids.append(i)
+        i += 1
+    return np.asarray(ids)
+
+
+def nearest_centre_labels(torch, dev, shape, n_rois, seed):
+    """make_atlas's rule (nearest of n_rois random centres, background
+    outside a sphere) computed on the card slab by slab: the 1-mm grid with
+    600 ROIs would take minutes in numpy."""
+    rng = np.random.default_rng(seed)
+    centres = torch.tensor(rng.uniform(0.15, 0.85, (n_rois, 3)),
+                           dtype=torch.float32, device=dev)
+    axes = [torch.linspace(0, 1, s, device=dev) for s in shape]
+    gy, gz = torch.meshgrid(axes[1], axes[2], indexing="ij")
+    labels = torch.empty(shape, dtype=torch.int32, device=dev)
+    for i in range(shape[0]):
+        pts = torch.stack([axes[0][i].expand_as(gy), gy, gz], -1).reshape(-1, 3)
+        lab = torch.cdist(pts, centres).argmin(1).to(torch.int32) + 1
+        lab[(pts - 0.5).norm(dim=1) > 0.55] = 0
+        labels[i] = lab.reshape(gy.shape)
+    return labels
+
+
 def bf16_ulps(torch, a, b):
     """Largest distance in bf16 steps between two non-negative bf16 tensors."""
     ia = a.view(torch.int16).to(torch.int32)
@@ -113,17 +177,25 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
 
+    from multimodal_ad_tpu_torch.cli import extract_features as cli_extract
     from multimodal_ad_tpu_torch.cli import predict as cli_predict
     from multimodal_ad_tpu_torch.core.config import Config
     from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest
     from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset
     from multimodal_ad_tpu_torch.data.pipeline import load_volume
-    from multimodal_ad_tpu_torch.data.synthetic import make_volume
+    from multimodal_ad_tpu_torch.data.splits import stratified_test_split
+    from multimodal_ad_tpu_torch.data.synthetic import (make_adni_dir, make_atlas,
+                                                        make_volume)
+    from multimodal_ad_tpu_torch.eval.atlas import compact_labels, load_atlas
+    from multimodal_ad_tpu_torch.eval.features import deterministic_cudnn
     from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.models.unet3d import UNet3D
     from multimodal_ad_tpu_torch.ops import _build
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import roi_pool as rp
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
     from multimodal_ad_tpu_torch.serve import EnsemblePredictor
     from multimodal_ad_tpu_torch.train import checkpoint as ckpt
     from multimodal_ad_tpu_torch.utils import nifti
@@ -145,11 +217,14 @@ def main() -> int:
     # ---- 2. build K1 ---------------------------------------------------
     log("== 2. build")
     t0 = time.time()
-    _build.build(["fused_gather"])
+    _build.build(["fused_gather", "roi_pool"])  # one nvcc each, in parallel
     fg._lib()
-    log(f"K1 built and loaded in {time.time() - t0:.2f} s "
-        f"({_build.library_path('fused_gather').name})")
+    rp._lib()
+    log(f"K1 and K2 built and loaded in {time.time() - t0:.2f} s "
+        f"({_build.library_path('fused_gather').name}, "
+        f"{_build.library_path('roi_pool').name})")
     log(_build.build_log("fused_gather").strip())
+    log(_build.build_log("roi_pool").strip())
 
     # ---- 3. K1 against its plain version --------------------------------
     log("== 3. K1 vs plain, 32 volumes of 91x109x91")
@@ -373,18 +448,220 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     log(f"clocks/power after the runs: {smi.stdout.strip()}")
+    del pred16, ds
+
+    # ---- 6. K2 against its plain version --------------------------------
+    log("== 6. K2 vs plain (float64), 166 ROIs on 91x109x91, 600 on 182x218x182")
+    t0 = time.time()
+    ids = sparse_aal_ids(N_ROIS)  # AAL-like sparse ids, written as the atlas
+    atlas_vol = make_atlas(VOL_SHAPE, n_rois=N_ROIS, seed=SEED)
+    atlas_vol = np.concatenate([[0], ids])[atlas_vol].astype(np.int16)
+    atlas_nii = os.path.join(work, "atlas.nii")
+    nifti.save(atlas_nii, atlas_vol)
+    atlas_lut = os.path.join(work, "atlas.json")
+    with open(atlas_lut, "w") as f:  # one id left out: it is named ROI{id}
+        json.dump({"rois": {str(i): {"label": f"R{i:03d}_L"} for i in ids[1:]}}, f)
+    labels, roi_ids, roi_names, _ = load_atlas(atlas_nii, atlas_lut)
+    labels = compact_labels(labels, roi_ids)
+    check(len(roi_ids) == N_ROIS and int(labels.max()) == N_ROIS,
+          f"atlas has {len(roi_ids)} ROIs")
+    log(f"atlas: {N_ROIS} ROIs (ids {ids[0]}..{ids[-1]}), "
+        f"{(labels > 0).mean():.1%} of voxels labelled; made in {time.time() - t0:.1f} s")
+
+    k2_labels = labels.copy()
+    k2_labels[k2_labels == 100] = 0  # ROI 100 without voxels
+    atlas = rp.RoiAtlas.build(k2_labels, N_ROIS, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    feats = torch.randn((BATCH, *VOL_SHAPE, ROI_CH), generator=g, device=dev)
+    labels_1mm = nearest_centre_labels(torch, dev, SHAPE_1MM, N_ROIS_1MM, SEED)
+    atlas_1mm = rp.RoiAtlas.build(labels_1mm, N_ROIS_1MM, dev)
+    feats_1mm = torch.randn((1, *SHAPE_1MM, ROI_CH), generator=g, device=dev)
+    k2_err = 0.0
+    for name, f, a, r in (("f32 B=8 2-mm", feats, atlas, N_ROIS),
+                          ("bf16 B=8 2-mm", feats.to(torch.bfloat16), atlas, N_ROIS),
+                          ("f32 B=1 1-mm", feats_1mm, atlas_1mm, N_ROIS_1MM)):
+        out = rp.roi_pool(f, a, r)
+        out2 = rp.roi_pool(f, a, r)
+        ref = rp.roi_pool_plain(f.double(), a, r)
+        torch.cuda.synchronize()
+        err = float((out.double() - ref).abs().max())
+        k2_err = max(k2_err, err)
+        check(torch.allclose(out.double(), ref, rtol=1e-5, atol=1e-6),
+              f"K2 {name} differs from plain by {err}")
+        check(torch.equal(out, out2), f"K2 {name}: two launches differ")
+        if r == N_ROIS:
+            check(bool((out[:, 99] == 0).all()), "the empty ROI 100 is not 0")
+        log(f"  {name:14s} max |err| {err:.3g} vs float64 plain (rtol 1e-5, "
+            f"atol 1e-6); two launches bit-identical")
+        del ref
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    lab_long = atlas.labels.to(torch.long)
+    flat = feats.reshape(BATCH, -1, ROI_CH)
+    clamped = atlas.counts.clamp(min=1e-6)[None, :, None]
+
+    def library_call():
+        sums = torch.zeros((BATCH, N_ROIS + 1, ROI_CH), device=dev)
+        return sums.index_add_(1, lab_long, flat)[:, 1:] / clamped
+
+    torch.cuda.synchronize()
+    err = float((library_call() - rp.roi_pool(feats, atlas, N_ROIS)).abs().max())
+    log(f"  index_add_ library call vs K2: max |d| {err:.3g}")
+    k2_ms = time_cuda(torch, lambda: rp.roi_pool(feats, atlas, N_ROIS), flush=flush)
+    k2_plain_ms = time_cuda(torch, lambda: rp.roi_pool_plain(feats, atlas, N_ROIS),
+                            reps=20, flush=flush)
+    k2_lib_ms = time_cuda(torch, library_call, flush=flush)
+    k2_bound, k2_bound_by = k2_bound_ms(atlas, BATCH, ROI_CH, 4)
+    k2_1mm_ms = time_cuda(torch, lambda: rp.roi_pool(feats_1mm, atlas_1mm, N_ROIS_1MM),
+                          flush=flush)
+    k2_1mm_bound, _ = k2_bound_ms(atlas_1mm, 1, ROI_CH, 4)
+    log("K2 device times (L2 flushed before each launch, median of 25; plain 20):")
+    log(f"  f32 B=8 2-mm, 166 ROIs  kernel {k2_ms:.4f} ms  plain {k2_plain_ms:.4f} ms  "
+        f"index_add_ {k2_lib_ms:.4f} ms  bound {k2_bound:.4f} ms ({k2_bound_by}, "
+        f"{atlas.order.numel()} labelled voxels) -> {k2_bound / k2_ms:.1%} of bound")
+    log(f"  f32 B=1 1-mm, 600 ROIs  kernel {k2_1mm_ms:.4f} ms  bound "
+        f"{k2_1mm_bound:.4f} ms -> {k2_1mm_bound / k2_1mm_ms:.1%} of bound")
+    del feats, feats_1mm, flat, atlas_1mm, labels_1mm, flush
+
+    # ---- 7. ROI extraction -------------------------------------------------
+    log("== 7. ROI extraction: cli.extract_features, full-width UNet3D, float32")
+    t0 = time.time()
+    label_csv, mri_dir = make_adni_dir(
+        os.path.join(work, "adni"), n_per_class=N_SUBJECTS // 2,
+        classes=("AD", "CN"), shape=VOL_SHAPE, seed=SEED, extent_jitter=0.3,
+        center_jitter=0.05)
+    log(f"wrote {N_SUBJECTS} subjects in {time.time() - t0:.1f} s")
+    argv = ["--atlas", atlas_nii, "--atlas-json", atlas_lut,
+            f"label_file={label_csv}", f"mri_dir={mri_dir}", f"batch_size={BATCH}"]
+    fg.gather_normalize.launches = 0
+    rp.roi_pool.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for run in (1, 2):
+        t0 = time.time()
+        feat_csv, roi_csv = cli_extract.main(argv + ["--out", os.path.join(work, f"out{run}")])
+        walls.append(time.time() - t0)
+        if run == 1:
+            ext_k1 = fg.gather_normalize.launches
+            ext_k2 = rp.roi_pool.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"extraction K1 launches {ext_k1}, K2 launches {ext_k2} (first run)")
+    check(ext_k1 > 0 and ext_k2 > 0, "the extraction path did not launch K1 and K2")
+    n_test = len(stratified_test_split(
+        ADNIManifest(label_csv, mri_dir, verbose=False).data_dict, 0.2, 42)[1])
+    with open(feat_csv) as f:
+        frows = list(csv.reader(f))
+    with open(roi_csv) as f:
+        rrows = list(csv.reader(f))
+    check(len(frows) == 1 + n_test and all(len(r) == 1 + VOX for r in frows),
+          f"features.csv is {len(frows)} rows of {len(frows[0])} columns")
+    check(len(rrows) == 1 + n_test and all(len(r) == 1 + N_ROIS * ROI_CH for r in rrows),
+          f"roi_features.csv is {len(rrows)} rows of {len(rrows[0])} columns")
+    check(rrows[0][1] == f"ROI{ids[0]}_c0" and rrows[0][1 + ROI_CH] == f"R{ids[1]:03d}_L_c0",
+          f"roi header {rrows[0][:3]}")
+    roi_vals = np.asarray([r[1:] for r in rrows[1:]], np.float64)
+    vox_vals = np.asarray([r[1:] for r in frows[1:]], np.float64)
+    check(bool(np.isfinite(roi_vals).all() and np.isfinite(vox_vals).all()),
+          "non-finite features")
+    with open(roi_csv, "rb") as a, open(os.path.join(work, "out1", "roi_features.csv"), "rb") as b:
+        same = a.read() == b.read()
+    check(same, "two extraction runs wrote different roi_features.csv bytes")
+    rate = n_test / walls[1]
+    log(f"features.csv {len(frows) - 1} x {len(frows[0])}, roi_features.csv "
+        f"{len(rrows) - 1} x {len(rrows[0])}, finite; ROI means in "
+        f"[{roi_vals.min():.4g}, {roi_vals.max():.4g}]; second run byte-identical")
+    log(f"extraction: {rate:.3f} subjects/s ({n_test} subjects, second run "
+        f"{walls[1]:.2f} s; first {walls[0]:.2f} s) on {card}; peak memory "
+        f"{peak_gb:.2f} GB")
+
+    # the card against the host CPU: a narrow U-Net on one full-size volume
+    host = torch.from_numpy(np.stack([
+        load_volume(os.path.join(mri_dir, f"CN_{i:03d}.nii")) for i in range(BATCH)])[..., None])
+    narrow = UNet3D(level_channels=(8, 16, 32), bottleneck_channel=64,
+                    generator=torch.Generator().manual_seed(SEED)).eval()
+    host_atlas = rp.RoiAtlas.build(labels, N_ROIS)
+    with torch.inference_mode():
+        h_out, h_feats = narrow(scale_intensity(host[:1]), return_features=True)
+        h_roi = rp.roi_pool(h_feats, host_atlas, N_ROIS)
+        with deterministic_cudnn():
+            c_out, c_feats = narrow.to(dev)(scale_intensity(host[:1].to(dev)),
+                                            return_features=True)
+        c_roi = rp.roi_pool(c_feats, rp.RoiAtlas.build(labels, N_ROIS, dev), N_ROIS)
+    d_roi = float((c_roi.cpu() - h_roi).abs().max())
+    d_out = float((c_out.cpu() - h_out).abs().max())
+    log(f"narrow U-Net, card vs host CPU (fp32, TF32 off): ROI means max |d| "
+        f"{d_roi:.3g}, output map max |d| {d_out:.3g}")
+    check(torch.allclose(c_roi.cpu(), h_roi, rtol=1e-3, atol=1e-3),
+          f"card and host ROI means differ by {d_roi}")
+    del narrow, c_out, c_feats
+
+    # time split of one full batch of 8, stage by stage (synchronized)
+    model = UNet3D(generator=torch.Generator().manual_seed(42)).eval().to(dev)
+    ext_atlas = rp.RoiAtlas.build(labels, N_ROIS, dev)
+
+    def timed(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times), out
+
+    split = {}
+    t0 = time.time()
+    pinned = host.pin_memory()
+    split["pin_host_ms"] = 1e3 * (time.time() - t0)
+    split["upload_ms"], raw = timed(lambda: pinned.to(dev, non_blocking=True))
+    split["k1_ms"], x = timed(lambda: scale_intensity(raw))
+    with torch.inference_mode(), deterministic_cudnn():
+        split["forward_ms"], (out, tap) = timed(lambda: model(x, return_features=True))
+        torch.backends.cudnn.deterministic = False
+        fwd_free_ms, _ = timed(lambda: model(x, return_features=True))
+        torch.backends.cudnn.deterministic = True
+        split["k2_ms"], roi = timed(lambda: rp.roi_pool(tap, ext_atlas, N_ROIS), reps=25)
+        split["copy_back_ms"], (flat_h, roi_h) = timed(
+            lambda: (out.reshape(BATCH, -1).cpu().numpy(), roi.cpu().numpy()))
+    t0 = time.time()
+    with open(os.path.join(work, "split.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        rows = roi_h.reshape(BATCH, -1)
+        for i in range(BATCH):
+            w.writerow([f"S{i}"] + flat_h[i].tolist())
+            w.writerow([f"S{i}"] + rows[i].tolist())
+    split["csv_write_ms"] = 1e3 * (time.time() - t0)
+    log(f"time split of one batch of {BATCH} (ms; CUDA events, median of 3; "
+        f"K2 of 25): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"  deterministic cuDNN: forward {split['forward_ms']:.1f} ms against "
+        f"{fwd_free_ms:.1f} ms with cuDNN free to choose (heuristics, no benchmark)")
+    log(f"  tap strides {tuple(tap.stride())} (channels-last, cropped from the "
+        f"padded 96x112x96 map): K2 {split['k2_ms']:.4f} ms")
+    with torch.inference_mode(), deterministic_cudnn(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        o, t = model(scale_intensity(raw), return_features=True)
+        rp.roi_pool(t, ext_atlas, N_ROIS).cpu()
+        torch.cuda.synchronize()
+    log("profile of one extraction batch of 8 (K1 + forward + K2, device time by kernel):")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                  max_name_column_width=60))
+    del model, raw, x, out, tap, o, t
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 6. result -----------------------------------------------------
+    # ---- 8. result -----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     kernels = {"kernels": [{
         "name": "fused_gather_normalize",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": serve_launches + resident_launches,
+        "launches": serve_launches + resident_launches + ext_k1,
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
+        "launches_extraction": ext_k1,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -394,9 +671,28 @@ def main() -> int:
         "shape": "float32 (8, 91, 109, 91, 1) -> bfloat16, B=8",
         "ms_resident_u8_b8": timings["resident u8->bf16 B=8"][0],
         "ms_resident_u8_b32": timings["resident u8->bf16 B=32"][0],
+    }, {
+        "name": "roi_pool",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": ext_k2,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_bound_by,
+        "library_ms": k2_lib_ms,
+        "shape": "float32 (8, 91, 109, 91, 64), 166 ROIs -> (8, 166, 64)",
+        "ms_on_tap": split["k2_ms"],
+        "ms_1mm_600_rois": k2_1mm_ms,
+        "bound_ms_1mm_600_rois": k2_1mm_bound,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},
+                    "extraction_subjects_per_s": rate,
+                    "extraction_split_ms": split,
+                    "extraction_peak_gb": peak_gb,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,3 +70,26 @@ def make_adni_dir(root: str, n_per_class=4, classes=("AD", "CN"),
     if pet:
         return csv_path, mri_dir, pet_dir
     return csv_path, mri_dir
+
+
+def make_atlas(shape=(24, 28, 24), n_rois: int = 6, seed: int = 0):
+    """Random contiguous-ish ROI label volume with ids 1..n_rois (0 = bg):
+    each voxel takes the id of its nearest random centre, and voxels
+    farther than 0.55 from the grid's centre are background.
+
+    The TPU package builds the whole (X, Y, Z, R) distance array at once
+    (1.8 GB at 91x109x91 with 166 ROIs); this takes the same float64
+    distances and argmin one x-slab at a time, so the labels are
+    identical and the memory is one slab's."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.15, 0.85, size=(n_rois, 3))
+    axes = [np.linspace(0, 1, s, dtype=np.float32) for s in shape]
+    gy, gz = np.meshgrid(axes[1], axes[2], indexing="ij")
+    labels = np.empty(tuple(shape), np.int32)
+    for i, x in enumerate(axes[0]):
+        pts = np.stack([np.full_like(gy, x), gy, gz], -1)  # (Y, Z, 3)
+        d = np.linalg.norm(pts[..., None, :] - centers[None, None], axis=-1)
+        lab = np.argmin(d, axis=-1).astype(np.int32) + 1
+        lab[np.linalg.norm(pts - 0.5, axis=-1) > 0.55] = 0
+        labels[i] = lab
+    return labels

@@ -11,6 +11,12 @@
 - `load_medicalnet_weights` merges a MedicalNet checkpoint into a model by
   key intersection (the reference's partial-transfer semantics), with a
   report of loaded / skipped / mismatched names.
+- `unet3d_state_dict_from_flax` turns the TPU package's UNet3D variables
+  into this package's UNet3D state_dict (`unet3d_name_map` pairs the
+  names). A flax ConvTranspose kernel (kx, ky, kz, in, out) becomes
+  (in, out, kx, ky, kz) *flipped in all three spatial axes*: flax's
+  ConvTranspose (transpose_kernel=False) equals
+  torch.nn.functional.conv_transpose3d only with the kernel flipped.
 """
 
 from __future__ import annotations
@@ -149,3 +155,56 @@ def load_medicalnet_weights(model, state_dict: dict, verbose: bool = False):
               f"skipped {len(skipped)}, mismatched {len(mismatched)}")
     return model, {"loaded": loaded, "skipped": skipped,
                    "mismatched": mismatched}
+
+
+# UNet3D: this package's module name -> the TPU package's flax module name
+_UNET_BLOCKS = (("enc1", "ConvBlock3D_0"), ("enc2", "ConvBlock3D_1"),
+                ("enc3", "ConvBlock3D_2"), ("bottleneck", "ConvBlock3D_3"),
+                ("dec3", "UpBlock3D_0"), ("dec2", "UpBlock3D_1"),
+                ("head_block", "head_block"))
+
+
+def _flip_convtranspose(w):
+    """flax ConvTranspose (kx, ky, kz, in, out) -> torch (in, out, kx, ky,
+    kz), flipped spatially."""
+    return np.transpose(w, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
+
+
+def unet3d_name_map() -> list:
+    """Ordered (torch_name, flax_collection, flax_path, transform) rows of
+    the UNet3D; `transform` maps the flax array to the torch layout."""
+    rows = []
+    for tname, fname in _UNET_BLOCKS:
+        up = not tname.startswith(("enc", "bottleneck"))
+        if up:
+            rows += [(f"{tname}.upconv.weight", "params",
+                      (fname, "ConvTranspose_0", "kernel"), _flip_convtranspose),
+                     (f"{tname}.upconv.bias", "params",
+                      (fname, "ConvTranspose_0", "bias"), None)]
+        for i in (0, 1):
+            conv, bn = (fname, f"Conv_{i}"), (fname, f"BatchNorm_{i}")
+            rows += [(f"{tname}.conv{i + 1}.weight", "params", conv + ("kernel",), _to_oidhw),
+                     (f"{tname}.conv{i + 1}.bias", "params", conv + ("bias",), None),
+                     (f"{tname}.bn{i + 1}.weight", "params", bn + ("scale",), None),
+                     (f"{tname}.bn{i + 1}.bias", "params", bn + ("bias",), None),
+                     (f"{tname}.bn{i + 1}.running_mean", "batch_stats", bn + ("mean",), None),
+                     (f"{tname}.bn{i + 1}.running_var", "batch_stats", bn + ("var",), None)]
+    rows += [("head_block.head.weight", "params", ("head_block", "Conv_2", "kernel"), _to_oidhw),
+             ("head_block.head.bias", "params", ("head_block", "Conv_2", "bias"), None)]
+    return rows
+
+
+def unet3d_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package UNet3D variables ({'params', 'batch_stats'} as nested
+    dicts of arrays) -> this package's UNet3D state_dict, loadable with
+    strict=True (each BatchNorm also gets num_batches_tracked = 0)."""
+    out = OrderedDict()
+    for tname, coll, fpath, tf in unet3d_name_map():
+        w = np.asarray(_get_path(variables[coll], fpath), np.float32)
+        if tf is not None:
+            w = tf(w)
+        out[tname] = torch.from_numpy(np.array(w, order="C"))  # own copy
+        if tname.endswith(".running_var"):
+            out[tname[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return out

@@ -10,14 +10,17 @@ bounds. Needs both jax and torch; runs in about a minute.
 
 from __future__ import annotations
 
+import csv
 import os
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 jax.config.update("jax_platforms", "cpu")
 
@@ -26,13 +29,25 @@ from multimodal_ad_tpu.models.resnet3d import ResNet3D as JaxResNet3D  # noqa: E
 from multimodal_ad_tpu.models.resnet3d import generate_model as jgen  # noqa: E402
 from multimodal_ad_tpu.ops import fused_gather as jfg  # noqa: E402
 from multimodal_ad_tpu.ops import normalize as jnorm  # noqa: E402
+from multimodal_ad_tpu.data.synthetic import make_adni_dir, make_atlas  # noqa: E402
+from multimodal_ad_tpu.data.adni import ADNIManifest  # noqa: E402
+from multimodal_ad_tpu.eval.features import \
+    extract_unet_features as jax_extract  # noqa: E402
+from multimodal_ad_tpu.models.unet3d import UNet3D as JaxUNet3D  # noqa: E402
+from multimodal_ad_tpu.models.unet3d import unet_forward_with_features  # noqa: E402
+from multimodal_ad_tpu.ops.roi_pool import roi_pool_pallas, roi_pool_xla  # noqa: E402
+from multimodal_ad_tpu.parallel.mesh import make_mesh  # noqa: E402
 from multimodal_ad_tpu.serve import EnsemblePredictor as JaxPredictor  # noqa: E402
 from multimodal_ad_tpu_torch.data.synthetic import make_volume  # noqa: E402
+from multimodal_ad_tpu_torch.eval.features import extract_unet_features  # noqa: E402
+from multimodal_ad_tpu_torch.models.unet3d import UNet3D  # noqa: E402
+from multimodal_ad_tpu_torch.ops import roi_pool as trp  # noqa: E402
 from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D, generate_model  # noqa: E402
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg  # noqa: E402
 from multimodal_ad_tpu_torch.ops import normalize as tnorm  # noqa: E402
 from multimodal_ad_tpu_torch.serve import EnsemblePredictor  # noqa: E402
-from multimodal_ad_tpu_torch.utils.torch_weights import state_dict_from_flax  # noqa: E402
+from multimodal_ad_tpu_torch.utils.torch_weights import (  # noqa: E402
+    state_dict_from_flax, unet3d_state_dict_from_flax)
 
 
 def random_flax_variables(model, shape, seed):
@@ -128,6 +143,56 @@ def main():
     ours = port.predict_proba(vols)
     report("EnsemblePredictor.predict_proba (2 folds, 6 vols, bs 4)", ours, ref)
     print(f"prob_1 port {np.round(ours[:, 1], 4).tolist()}")
+
+    # K2 plain version vs roi_pool_xla / roi_pool_pallas(interpret)
+    shape = (12, 14, 12)
+    labels = make_atlas(shape, n_rois=5, seed=1)
+    feats = np.random.default_rng(0).normal(size=(2, *shape, 8)).astype(np.float32)
+    ours = trp.roi_pool_plain(torch.from_numpy(feats), torch.from_numpy(labels), 5)
+    report("K2 plain vs roi_pool_xla", ours,
+           roi_pool_xla(jnp.asarray(feats), jnp.asarray(labels), 5))
+    report("K2 plain vs roi_pool_pallas(tile_n=512, interpret)", ours,
+           roi_pool_pallas(jnp.asarray(feats), jnp.asarray(labels), 5, tile_n=512,
+                           interpret=True))
+
+    # UNet3D (8, 16, 32)/64, fp32, randomized BN statistics: output and tap
+    narrow = dict(level_channels=(8, 16, 32), bottleneck_channel=64)
+    for shape in ((15, 17, 13), (20, 24, 20)):
+        jm = JaxUNet3D(dtype=jnp.float32, **narrow)
+        v = random_flax_variables(jm, (*shape, 1), seed=sum(shape))
+        x = np.random.default_rng(1).normal(size=(2, *shape, 1)).astype(np.float32)
+        out, tap = jax.jit(lambda v, x: unet_forward_with_features(jm, v, x))(
+            v, jnp.asarray(x))
+        tm = UNet3D(**narrow).eval()
+        tm.load_state_dict(unet3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, v)))
+        with torch.no_grad():
+            o, t = tm(torch.from_numpy(x), return_features=True)
+        tag = "x".join(map(str, shape))
+        report(f"UNet3D output {tag}", o.numpy(), out)
+        report(f"UNet3D 64-ch tap (8 ch here) {tag}", t.numpy(), tap)
+
+    # slice: extract_unet_features on 5 subjects, converted weights
+    with tempfile.TemporaryDirectory() as root:
+        shape = (20, 24, 20)
+        csv_path, mri = make_adni_dir(root, n_per_class=6, shape=shape, seed=0)
+        records = ADNIManifest(csv_path, mri, "ADCN", verbose=False).data_dict[:5]
+        labels = make_atlas(shape, n_rois=3, seed=0)
+        jm = JaxUNet3D(dtype=jnp.float32, **narrow)
+        v = random_flax_variables(jm, (*shape, 1), seed=11)
+        tm = UNet3D(**narrow)
+        tm.load_state_dict(unet3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, v)))
+        ref = jax_extract(records, labels, ["A", "B", "C"], os.path.join(root, "jax"),
+                          model=jm, variables=v, batch_size=8,
+                          mesh=make_mesh({"data": -1}), num_threads=2)
+        ours = extract_unet_features(records, labels, ["A", "B", "C"],
+                                     os.path.join(root, "port"), model=tm, batch_size=2,
+                                     num_threads=2, device="cpu")
+        for name, a, b in zip(("features.csv", "roi_features.csv"), ours, ref):
+            rows_a, rows_b = (list(csv.reader(open(p))) for p in (a, b))
+            assert rows_a[0] == rows_b[0] and [r[0] for r in rows_a] == [r[0] for r in rows_b]
+            report(f"extract_unet_features {name} (5 subjects)",
+                   np.asarray([r[1:] for r in rows_a[1:]], float),
+                   np.asarray([r[1:] for r in rows_b[1:]], float))
 
 
 if __name__ == "__main__":

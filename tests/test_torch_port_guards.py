@@ -1,7 +1,8 @@
 """Guards of the port: it imports without JAX or the JAX package, names
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
-kernel agrees with its plain version on a card (those tests carry the
-`cuda` marker and skip where there is none)."""
+kernels K1 and K2 agree with their plain versions on a card (those tests
+carry the `cuda` marker and skip where there is none). This file imports
+no JAX, so it also runs on the card's machine."""
 
 import os
 import pkgutil
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 import multimodal_ad_tpu_torch
+from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg
+from multimodal_ad_tpu_torch.ops import roi_pool as trp
 
 PKG_DIR = os.path.dirname(multimodal_ad_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -55,18 +58,46 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     assert not hits, "\n".join(hits)
 
 
+def test_extraction_runs_without_sklearn_pandas_or_matplotlib(tmp_path):
+    """The card's machine has none of them: the extraction CLI runs end to
+    end on the CPU with them (and JAX) blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'multimodal_ad_tpu', 'sklearn', 'pandas',"
+        " 'matplotlib'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from multimodal_ad_tpu_torch.cli.extract_features import main\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir, make_atlas\n"
+        "from multimodal_ad_tpu_torch.utils import nifti\n"
+        f"root = {str(tmp_path)!r}\n"
+        "csv_path, mri = make_adni_dir(root, n_per_class=5, shape=(8, 8, 8))\n"
+        "nifti.save(root + '/atlas.nii', make_atlas((8, 8, 8), 3).astype(np.int16))\n"
+        "main(['--atlas', root + '/atlas.nii', '--out', root + '/out', '--device',"
+        " 'cpu', 'label_file=' + csv_path, 'mri_dir=' + mri, 'loader_threads=2'])\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert os.path.isfile(tmp_path / "out" / "roi_features.csv")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
 def test_default_device_raises_without_a_card(no_cuda, tmp_path):
+    from multimodal_ad_tpu_torch.cli.extract_features import main as extract_main
     from multimodal_ad_tpu_torch.cli.predict import main
     from multimodal_ad_tpu_torch.core.device import resolve_device
     from multimodal_ad_tpu_torch.data.device_cache import (
         DeviceDataset, build_device_dataset)
+    from multimodal_ad_tpu_torch.eval.features import extract_unet_features
     from multimodal_ad_tpu_torch.models.resnet3d import generate_model
     from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.utils import nifti
 
     model = generate_model(model_depth=10)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -81,6 +112,17 @@ def test_default_device_raises_without_a_card(no_cuda, tmp_path):
         build_device_dataset([])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--ckpt-dir", str(tmp_path), "--volumes", "a.nii"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_unet_features([], np.ones((4, 4, 4), np.int32), ["A"], str(tmp_path))
+    labels = str(tmp_path / "labels.csv")
+    with open(labels, "w") as f:
+        f.write("Subject_ID,Group\n" + "".join(f"S{i},{'AD' if i % 2 else 'CN'}\n"
+                                               for i in range(10)))
+    atlas = str(tmp_path / "atlas.nii")
+    nifti.save(atlas, np.ones((4, 4, 4), np.int16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_main(["--atlas", atlas, "--out", str(tmp_path / "out"),
+                      f"label_file={labels}", f"mri_dir={tmp_path}"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -141,3 +183,61 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                              torch.float16)
     with pytest.raises(ValueError):
         tfg.gather_normalize(torch.zeros((8, 2), device=cuda).t(), np.array([0]))
+
+
+def _check_k2(feats, labels, r):
+    """K2 against its plain version in float64 (rtol 1e-5, atol 1e-6: f32
+    sums of a few hundred values per lane) and bit-identical launches."""
+    before = trp.roi_pool.launches
+    a = trp.roi_pool(feats, labels, r)
+    b = trp.roi_pool(feats, labels, r)
+    torch.cuda.synchronize()
+    assert trp.roi_pool.launches == before + 2
+    ref = trp.roi_pool_plain(feats.double(), labels, r)
+    torch.testing.assert_close(a.double(), ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(a, b)  # deterministic: bit-identical launches
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["5d", "3d", "strided"])
+def test_k2_matches_plain(cuda, dtype, layout):
+    g = torch.Generator().manual_seed(0)
+    labels = torch.from_numpy(make_atlas((12, 14, 12), n_rois=6, seed=1))
+    labels[labels == 3] = 0  # ROI 3 empty; ROI 7 has no id at all
+    if layout == "strided":  # a crop of a channels-last map, C = 80
+        big = torch.randn((2, 16, 18, 16, 100), generator=g)
+        feats = big.to(cuda, dtype)[:, 1:13, 2:16, 3:15, 10:90]
+    else:
+        feats = torch.randn((2, 12, 14, 12, 8), generator=g).to(cuda, dtype)
+        if layout == "3d":
+            feats = feats.reshape(2, -1, 8)
+    out = _check_k2(feats, labels.to(cuda), 7)
+    assert (out[:, 2] == 0).all() and (out[:, 6] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k2_600_rois(cuda):
+    g = torch.Generator().manual_seed(1)
+    labels = torch.randint(0, 601, (20, 22, 18), generator=g, dtype=torch.int32)
+    feats = torch.randn((1, 20, 22, 18, 64), generator=g).to(cuda)
+    atlas = trp.RoiAtlas.build(labels, 600, cuda)
+    _check_k2(feats, atlas, 600)
+
+
+@pytest.mark.cuda
+def test_k2_rejects_what_it_does_not_take(cuda):
+    labels = torch.ones((2, 2, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        trp.roi_pool(torch.zeros((1, 2, 2, 2, 4), dtype=torch.float64, device=cuda),
+                     labels, 1)
+    with pytest.raises(ValueError):  # 4-D features
+        trp.roi_pool(torch.zeros((1, 8, 4), device=cuda)[None], labels, 1)
+    with pytest.raises(ValueError):  # voxel count differs from the atlas
+        trp.roi_pool(torch.zeros((1, 3, 2, 2, 4), device=cuda), labels, 1)
+    with pytest.raises(ValueError):  # label 2 > num_rois
+        trp.roi_pool(torch.zeros((1, 2, 2, 2, 4), device=cuda), labels * 2, 1)
+    atlas = trp.RoiAtlas.build(labels, 1)  # on the host
+    with pytest.raises(ValueError):
+        trp.roi_pool(torch.zeros((1, 2, 2, 2, 4), device=cuda), atlas, 1)

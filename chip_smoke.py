@@ -12,8 +12,11 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
 3. K1 against its plain PyTorch version on the card: 32 full-size
    91x109x91 volumes in uint8, int16 (with negatives) and float32,
    repeated indices and one constant volume, f32 and bf16 output, int32
-   and int64 indices; then its time (CUDA events, L2 flushed before each
-   launch, median of 25) beside the bound and the plain version's time;
+   and int64 indices; one call is one kernel (torch.profiler); then its
+   time (CUDA events, L2 flushed and a device spin before each launch,
+   median of 25) at the serving, resident and extraction shapes beside
+   the bound, the plain version's time and an empty launch, with the
+   exchange mode the kernel took (cluster or grid);
 4. serving: 5 seeded full-width ResNet-18 fold checkpoints, 12 NIfTI
    volumes, `cli.predict --batch-size 8` (chunks 8 + 4) on the card; the
    bf16 ensemble against the fp32 one (TF32 off), and one fold's fp32
@@ -24,8 +27,9 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    (8, 91, 109, 91, 64) float32 and bfloat16 features over a 166-ROI
    synthetic atlas with AAL-like sparse ids, compacted, with background and
    one ROI emptied; (1, 182, 218, 182, 64) float32 over 600 ROIs (the 1-mm
-   grid); rtol 1e-5, atol 1e-6, and two launches bit-identical; then its
-   time (as K1's) beside its bound, the plain version's and the
+   grid); rtol 1e-5, atol 1e-6, and two launches bit-identical, with the
+   tile size T, the tile count and the path (bulk or SIMT) of each; then
+   its time (as K1's) beside its bound, the plain version's and the
    `index_add_` library call's;
 7. ROI extraction: a 50-subject dataset at 91x109x91, the atlas as NIfTI +
    JSON LUT, `cli.extract_features` on the card at full width (UNet3D
@@ -34,7 +38,9 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    run byte-identical; a narrow U-Net on the card against the host CPU on a
    full-size volume (ROI means within rtol = atol = 1e-3); subjects/s, the
    time split of a batch (upload, K1, forward, K2, copy back, CSV write),
-   the cost of deterministic cuDNN, peak memory, and a profile;
+   K2 on the U-Net's tap and K1 at its shape with the spun timer, the
+   path K2 took on the tap, the cost of deterministic cuDNN, peak memory,
+   and a profile;
 8. one JSON line {"kernels": [...]} and, last, the device line.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -266,29 +272,44 @@ def main() -> int:
                         "tolerance 1 ulp)")
 
     log(f"K1 launches in this check: {fg.gather_normalize.launches}")
-    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
-    timings = {}
-    log("K1 device times (L2 flushed before each launch, median of 25):")
-    # serving shape: a float32 chunk of 8 volumes -> bf16 batch; resident
-    # shapes: the uint8 corpus -> bf16 batch of 8 and 32
     serve_src = sources[torch.float32][:BATCH].contiguous()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fg.gather_normalize(serve_src, torch.arange(BATCH, device=dev), torch.bfloat16)
+        torch.cuda.synchronize()
+    k1_kernels = sum(e.count for e in prof.key_averages() if "gather_normalize" in e.key)
+    log(f"K1 kernels on the card for one call (torch.profiler): {k1_kernels}")
+    check(k1_kernels == 1, f"one K1 call ran {k1_kernels} kernels")
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    timings, k1_modes = {}, {}
+    log("K1 device times (L2 flushed and a device spin before each launch, "
+        "median of 25):")
+    # serving shape: a float32 chunk of 8 volumes -> bf16 batch; resident
+    # shapes: the uint8 corpus -> bf16 batch of 8 and 32; extraction shape:
+    # scale_intensity of a float32 batch of 8
     cases = [("serving f32->bf16 B=8", serve_src,
-              torch.arange(BATCH, device=dev)),
+              torch.arange(BATCH, device=dev), torch.bfloat16),
              ("resident u8->bf16 B=8", sources[torch.uint8],
-              torch.tensor(idx8, device=dev)),
+              torch.tensor(idx8, device=dev), torch.bfloat16),
              ("resident u8->bf16 B=32", sources[torch.uint8],
-              torch.tensor(idx32, device=dev))]
-    for name, src, idx in cases:
-        ms = time_cuda(torch, lambda: fg.gather_normalize(src, idx, torch.bfloat16),
-                       flush=flush)
+              torch.tensor(idx32, device=dev), torch.bfloat16),
+             ("extraction f32->f32 B=8", serve_src,
+              torch.arange(BATCH, device=dev), torch.float32)]
+    for name, src, idx, odt in cases:
+        ms = time_cuda(torch, lambda: fg.gather_normalize(src, idx, odt), flush=flush)
         plain_ms = time_cuda(
-            torch, lambda: fg.gather_normalize_plain(src, idx, torch.bfloat16),
-            flush=flush)
-        bound, bound_by = k1_bound_ms(idx.numel(), src.element_size(), 2,
+            torch, lambda: fg.gather_normalize_plain(src, idx, odt), flush=flush)
+        bound, bound_by = k1_bound_ms(idx.numel(), src.element_size(),
+                                      torch.empty((), dtype=odt).element_size(),
                                       idx.element_size())
         timings[name] = (ms, plain_ms, bound, bound_by)
+        k1_modes[name] = fg.gather_normalize.mode
         log(f"  {name:24s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {bound:.4f} ms ({bound_by})  -> {bound / ms:.1%} of bound")
+            f"bound {bound:.4f} ms ({bound_by})  -> {bound / ms:.1%} of bound; "
+            f"{fg.gather_normalize.mode} mode, {fg.gather_normalize.blocks_per_volume} "
+            f"blocks a volume, {fg.gather_normalize.smem_bytes} B of shared memory each")
+    empty_ms = time_cuda(torch, lambda: torch.cuda._sleep(0), flush=flush)
+    log(f"  an empty launch (torch.cuda._sleep(0)) {empty_ms:.4f} ms")
     log("  library call: none (no single PyTorch call gathers and min-max "
         "normalizes per volume)")
     del sources, flush
@@ -492,7 +513,8 @@ def main() -> int:
         if r == N_ROIS:
             check(bool((out[:, 99] == 0).all()), "the empty ROI 100 is not 0")
         log(f"  {name:14s} max |err| {err:.3g} vs float64 plain (rtol 1e-5, "
-            f"atol 1e-6); two launches bit-identical")
+            f"atol 1e-6); two launches bit-identical; T {a.tile_size}, "
+            f"{a.num_tiles} tiles, {a.runs.shape[0]} runs, {rp.k2_path(f, a)} path")
         del ref
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
     lab_long = atlas.labels.to(torch.long)
@@ -534,6 +556,7 @@ def main() -> int:
             f"label_file={label_csv}", f"mri_dir={mri_dir}", f"batch_size={BATCH}"]
     fg.gather_normalize.launches = 0
     rp.roi_pool.launches = 0
+    rp.roi_pool.path_launches = dict.fromkeys(rp.PATHS, 0)
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for run in (1, 2):
@@ -543,8 +566,10 @@ def main() -> int:
         if run == 1:
             ext_k1 = fg.gather_normalize.launches
             ext_k2 = rp.roi_pool.launches
+            ext_k2_paths = dict(rp.roi_pool.path_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"extraction K1 launches {ext_k1}, K2 launches {ext_k2} (first run)")
+    log(f"extraction K1 launches {ext_k1}, K2 launches {ext_k2} (first run; K2 by "
+        f"path {ext_k2_paths})")
     check(ext_k1 > 0 and ext_k2 > 0, "the extraction path did not launch K1 and K2")
     n_test = len(stratified_test_split(
         ADNIManifest(label_csv, mri_dir, verbose=False).data_dict, 0.2, 42)[1])
@@ -637,8 +662,22 @@ def main() -> int:
         f"K2 of 25): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     log(f"  deterministic cuDNN: forward {split['forward_ms']:.1f} ms against "
         f"{fwd_free_ms:.1f} ms with cuDNN free to choose (heuristics, no benchmark)")
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    tap_path = rp.k2_path(tap, ext_atlas)
+    k2_tap_ms = time_cuda(torch, lambda: rp.roi_pool(tap, ext_atlas, N_ROIS), flush=flush)
+    k2_tap_bound, _ = k2_bound_ms(ext_atlas, BATCH, ROI_CH, 4)
+    k1_ext_ms = time_cuda(torch, lambda: scale_intensity(raw), flush=flush)
+    k1_ext_bound, _ = k1_bound_ms(BATCH, 4, 4, 8)
+    del flush
     log(f"  tap strides {tuple(tap.stride())} (channels-last, cropped from the "
-        f"padded 96x112x96 map): K2 {split['k2_ms']:.4f} ms")
+        f"padded 96x112x96 map): K2 took the {tap_path} path, "
+        f"{split['k2_ms']:.4f} ms (events, median of 25), {k2_tap_ms:.4f} ms with "
+        f"the spun timer (L2 flushed, device spin) against its bound "
+        f"{k2_tap_bound:.4f} ms -> {k2_tap_bound / k2_tap_ms:.1%}")
+    log(f"  K1 at the extraction shape (scale_intensity, f32 -> f32, B=8) "
+        f"{k1_ext_ms:.4f} ms with the spun timer against its bound "
+        f"{k1_ext_bound:.4f} ms -> {k1_ext_bound / k1_ext_ms:.1%}; "
+        f"{fg.gather_normalize.mode} mode")
     with torch.inference_mode(), deterministic_cudnn(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -671,6 +710,12 @@ def main() -> int:
         "shape": "float32 (8, 91, 109, 91, 1) -> bfloat16, B=8",
         "ms_resident_u8_b8": timings["resident u8->bf16 B=8"][0],
         "ms_resident_u8_b32": timings["resident u8->bf16 B=32"][0],
+        "ms_extraction_f32_b8": k1_ext_ms,
+        "bound_ms_extraction_f32_b8": k1_ext_bound,
+        "empty_launch_ms": empty_ms,
+        "kernels_per_call": k1_kernels,
+        "mode_by_shape": k1_modes,
+        "design_pr": 3,
     }, {
         "name": "roi_pool",
         "route": "cuda",
@@ -684,9 +729,15 @@ def main() -> int:
         "bound_by": k2_bound_by,
         "library_ms": k2_lib_ms,
         "shape": "float32 (8, 91, 109, 91, 64), 166 ROIs -> (8, 166, 64)",
-        "ms_on_tap": split["k2_ms"],
+        "ms_on_tap": k2_tap_ms,
+        "bound_ms_on_tap": k2_tap_bound,
+        "tap_path": tap_path,
+        "launches_by_path": ext_k2_paths,
+        "tile_size": ext_atlas.tile_size,
+        "tiles_2mm": ext_atlas.num_tiles,
         "ms_1mm_600_rois": k2_1mm_ms,
         "bound_ms_1mm_600_rois": k2_1mm_bound,
+        "design_pr": 3,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},

@@ -34,8 +34,9 @@ from . import _build
 _SRC_CODES = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}
 _IDX_CODES = {torch.int32: 0, torch.int64: 1}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 16384  # voxels per block; a multiple of 16 (whole 16-byte vectors)
-_MAX_BATCH = 65535  # CUDA grid.y limit
+# (device index, stream) -> the kernel's scratch of 8 float2 per SM,
+# allocated once: launches on one stream run in order, so they share it.
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def gather_normalize_plain(src: torch.Tensor, indices: torch.Tensor,
@@ -75,11 +76,19 @@ def _lib():
     fn = lib.mad_gather_normalize
     if fn.argtypes is None:  # first use: declare the C signature
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, ll, ll, p, i, i, p, i, p, ll, i, p]
+        fn.argtypes = [p, i, ll, ll, p, i, i, p, i, p, i, p, p, p]
         fn.restype = ctypes.c_int
         lib.mad_error_string.argtypes = [ctypes.c_int]
         lib.mad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _scratch(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    if key not in _SCRATCH:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _SCRATCH[key] = torch.empty(16 * n_sm, dtype=torch.float32, device=device)
+    return _SCRATCH[key]
 
 
 def gather_normalize(src: torch.Tensor, indices, out_dtype=torch.float32
@@ -103,8 +112,6 @@ def gather_normalize(src: torch.Tensor, indices, out_dtype=torch.float32
     if not src.is_contiguous():
         raise ValueError("K1 needs a contiguous source")
     b = idx.shape[0]
-    if b > _MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds K1's grid limit {_MAX_BATCH}")
     if idx.device.type == "cpu":
         idx = idx.to(src.device)
     elif idx.device != src.device:
@@ -115,20 +122,27 @@ def gather_normalize(src: torch.Tensor, indices, out_dtype=torch.float32
                       device=src.device)
     if b == 0 or vox == 0:
         return out
-    n_chunks = -(-vox // CHUNK)
-    partial = torch.empty((b * n_chunks * 2,), dtype=torch.float32,
-                          device=src.device)
     lib = _lib()
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    per_vol, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.mad_gather_normalize(
         src.data_ptr(), _SRC_CODES[src.dtype], n, vox, idx.data_ptr(),
         _IDX_CODES[idx.dtype], b, out.data_ptr(), _OUT_CODES[out_dtype],
-        partial.data_ptr(), CHUNK, src.device.index or 0, stream)
+        _scratch(src.device, stream).data_ptr(), src.device.index or 0, stream,
+        ctypes.byref(per_vol), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(
             f"fused_gather launch failed: {lib.mad_error_string(rc).decode()}")
     gather_normalize.launches += 1
+    gather_normalize.mode = "cluster" if per_vol.value < 0 else "grid"
+    gather_normalize.blocks_per_volume = abs(per_vol.value)
+    gather_normalize.smem_bytes = smem.value
     return out
 
 
 gather_normalize.launches = 0  # K1 launches; chip_smoke.py resets and reads it
+# the last launch's exchange mode ('cluster' or 'grid', see
+# csrc/fused_gather.cu), blocks per volume and shared memory per block
+gather_normalize.mode = None
+gather_normalize.blocks_per_volume = None
+gather_normalize.smem_bytes = None

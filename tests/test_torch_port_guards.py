@@ -241,3 +241,107 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     atlas = trp.RoiAtlas.build(labels, 1)  # on the host
     with pytest.raises(ValueError):
         trp.roi_pool(torch.zeros((1, 2, 2, 2, 4), device=cuda), atlas, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", trp.PATHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_one_voxel_long_and_empty_rois(cuda, path, dtype):
+    """On both variants (the SIMT one through a channel crop): a one-voxel
+    ROI, an ROI of 1,920 voxels over 30 tiles of 64, an empty ROI and an id
+    without voxels."""
+    g = torch.Generator().manual_seed(2)
+    labels = torch.randint(3, 6, (10, 12, 40), generator=g, dtype=torch.int32)
+    labels[2:6] = 2
+    labels[0, 0, 0] = 1
+    labels[labels == 4] = 0
+    atlas = trp.RoiAtlas.build(labels, 6, cuda, tile_size=64)
+    assert int(atlas.roi_tiles[2] - atlas.roi_tiles[1]) == 30
+    width = 64 if path == "bulk" else 66
+    feats = torch.randn((3, 10, 12, 40, width), generator=g).to(cuda, dtype)[..., :64]
+    assert trp.k2_path(feats, atlas) == path
+    before = trp.roi_pool.path_launches[path]
+    out = _check_k2(feats, atlas, 6)
+    assert trp.roi_pool.path_launches[path] == before + 2
+    assert torch.equal(out[:, 0], feats[:, 0, 0, 0].float())  # one value, divided by 1
+    assert (out[:, 3] == 0).all() and (out[:, 5] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tap crop", "unaligned crop"])
+def test_k2_padded_crops(cuda, case):
+    """A crop of a padded channels-last map, as the U-Net's tap (the bulk
+    path), and a crop whose rows are not 16-byte aligned (the SIMT path)."""
+    g = torch.Generator().manual_seed(3)
+    labels = torch.from_numpy(make_atlas((12, 14, 40), n_rois=9, seed=4))
+    atlas = trp.RoiAtlas.build(labels, 9, cuda, tile_size=32)
+    if case == "tap crop":
+        feats = torch.randn((2, 16, 16, 48, 64), generator=g).to(cuda)[:, :12, :14, :40]
+    else:  # voxel stride 66 and a 4-byte offset
+        feats = torch.randn((2, 13, 16, 43, 66), generator=g).to(cuda)[:, 1:, 2:, 3:, 1:65]
+    expect = "bulk" if case == "tap crop" else "simt"
+    assert trp.k2_path(feats, atlas) == expect
+    before = trp.roi_pool.path_launches[expect]
+    _check_k2(feats, atlas, 9)
+    assert trp.roi_pool.path_launches[expect] == before + 2
+
+
+def _check_k1_exact(src, idx, constant):
+    """K1 against its plain version: bit-exact in f32, 1 ulp in bf16; the
+    constant volume maps to 0."""
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = tfg.gather_normalize(src, idx, out_dtype)
+        ref = tfg.gather_normalize_plain(src, idx, out_dtype)
+        torch.cuda.synchronize()
+        if out_dtype == torch.float32:
+            assert torch.equal(out, ref)
+        else:
+            diff = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+            assert int(diff.max()) <= 1
+        assert (out[idx == constant] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33, 300])
+def test_k1_batches(cuda, batch):
+    """Cluster mode: B = 1, 33 and 300 over volumes of 37x41x29 = 43,993
+    voxels (a multiple neither of 16 nor of a block's slice, so volumes
+    start unaligned), int64 indices."""
+    g = torch.Generator().manual_seed(batch)
+    src = (torch.randn((4, 37, 41, 29), generator=g) * 50).to(cuda)
+    src[2] = -3.0
+    idx = torch.randint(0, 4, (batch,), generator=g).to(cuda)
+    _check_k1_exact(src, idx, 2)
+    assert tfg.gather_normalize.mode == "cluster"
+    assert tfg.gather_normalize.blocks_per_volume == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,batch", [((91, 109, 91), 8), ((91, 109, 91), 12),
+                                         ((160, 160, 164), 3), ((80, 80, 80), 600)])
+def test_k1_grid_mode(cuda, shape, batch):
+    """Grid mode (float32 volumes too large for a cluster): slices that fit
+    shared memory (8 full-size volumes), slices that do not and read the
+    rest from global memory twice (12 of them; 3 of 4.2 M voxels), and 600
+    volumes, more than the grid holds at once (rounds)."""
+    g = torch.Generator().manual_seed(5)
+    src = (torch.randn((3, *shape), generator=g) * 100).to(cuda)
+    src[1] = 5.0
+    idx = (torch.arange(batch, dtype=torch.int32) % 3).to(cuda)
+    _check_k1_exact(src, idx, 1)
+    assert tfg.gather_normalize.mode == "grid"
+    per_vol, smem = tfg.gather_normalize.blocks_per_volume, tfg.gather_normalize.smem_bytes
+    assert (per_vol * smem >= 4 * src[0].numel()) == (shape == (91, 109, 91) and batch == 8)
+
+
+@pytest.mark.cuda
+def test_k1_out_of_range_device_index_gives_a_nan_row(cuda):
+    """Device indices are not read back; one out of range writes NaN."""
+    g = torch.Generator().manual_seed(6)
+    src = torch.randint(0, 256, (3, 9, 10, 11), generator=g, dtype=torch.uint8).to(cuda)
+    idx = torch.tensor([2, 3, -1, 0], dtype=torch.int64, device=cuda)
+    out = tfg.gather_normalize(src, idx, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1].float()).all() and torch.isnan(out[2].float()).all()
+    ref = tfg.gather_normalize_plain(src, idx[[0, 3]], torch.bfloat16)
+    assert torch.equal(out[[0, 3]], ref)

@@ -41,7 +41,23 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    K2 on the U-Net's tap and K1 at its shape with the spun timer, the
    path K2 took on the tap, the cost of deterministic cuDNN, peak memory,
    and a profile;
-8. one JSON line {"kernels": [...]} and, last, the device line.
+8. training: a 40-subject dataset at 91x109x91; 8 steps of a fresh
+   ResNet-18 (bf16 autocast) on one fixed batch, whose weighted CE must
+   fall, the first step timed (cuDNN autotune of the backward
+   convolutions); then `cli.train_resnet3d` on the card at full width
+   (ResNet-18 B, batch 8, hbm_cache + augment + precise_bn,
+   scale_intensity, 2 folds x 2 epochs, lr 1e-3): K1 launched on every
+   batch, finite losses, the 19-column CSV, the checkpoints, finite test
+   metrics; the trained best_fold{k} served by EnsemblePredictor against
+   the test run's fold-mean probabilities; training vols/s (resident,
+   augmented, B = 8, median of 14 steps after 2 of warm-up, CUDA events),
+   the time split of a step (K1, augmentation, forward + backward,
+   optimizer), peak memory and a profile of two steps; three fp32 steps of
+   a ResNet-10 at 32x38x32, card against host CPU, the card starting each
+   step from the host's state (losses and BN statistics rtol = atol =
+   1e-3; parameters within 2 lr, 99.9 % of them within 1e-3: Adam can step
+   either way where a gradient is near zero);
+9. one JSON line {"kernels": [...]} and, last, the device line.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -81,6 +97,8 @@ N_ROIS_1MM = 600
 SHAPE_1MM = (182, 218, 182)
 ROI_CH = 64  # the U-Net's pre-head width
 N_SUBJECTS = 50  # seed-42 test split of 0.2: 10 subjects, batches 8 + 2
+N_TRAIN = 40  # seed-42 test split: 8 subjects; 2 folds of 16 train / 16 val
+TRAIN_EPOCHS = 2
 
 
 def log(msg=""):
@@ -186,10 +204,12 @@ def main() -> int:
 
     from multimodal_ad_tpu_torch.cli import extract_features as cli_extract
     from multimodal_ad_tpu_torch.cli import predict as cli_predict
+    from multimodal_ad_tpu_torch.cli import train_resnet3d as cli_train
     from multimodal_ad_tpu_torch.core.config import Config
     from multimodal_ad_tpu_torch.core.device import resolve_device
     from multimodal_ad_tpu_torch.data.adni import ADNIManifest
-    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset
+    from multimodal_ad_tpu_torch.data.device_cache import (DeviceDataset,
+                                                           DeviceEpochIterator)
     from multimodal_ad_tpu_torch.data.pipeline import load_volume
     from multimodal_ad_tpu_torch.data.splits import stratified_test_split
     from multimodal_ad_tpu_torch.data.synthetic import (make_adni_dir, make_atlas,
@@ -201,9 +221,11 @@ def main() -> int:
     from multimodal_ad_tpu_torch.ops import _build
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
     from multimodal_ad_tpu_torch.ops import roi_pool as rp
+    from multimodal_ad_tpu_torch.ops.augment import augment_batch
     from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
     from multimodal_ad_tpu_torch.serve import EnsemblePredictor
     from multimodal_ad_tpu_torch.train import checkpoint as ckpt
+    from multimodal_ad_tpu_torch.train import loop
     from multimodal_ad_tpu_torch.utils import nifti
 
     t_start = time.time()
@@ -688,19 +710,239 @@ def main() -> int:
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
                                   max_name_column_width=60))
     del model, raw, x, out, tap, o, t
+
+    # ---- 8. training ----------------------------------------------------
+    log("== 8. training: ResNet-18 B, bf16 autocast, 91x109x91, batch 8")
+    t0 = time.time()
+    train_csv, train_mri = make_adni_dir(
+        os.path.join(work, "train"), n_per_class=N_TRAIN // 2, classes=("AD", "CN"),
+        shape=VOL_SHAPE, seed=SEED + 7, extent_jitter=0.3, center_jitter=0.04,
+        noise=0.25)
+    records = ADNIManifest(train_csv, train_mri, verbose=False).data_dict
+    tr_val, test_recs = stratified_test_split(records, 0.2, 42)
+    log(f"wrote {N_TRAIN} subjects in {time.time() - t0:.1f} s ({len(tr_val)} train/val, "
+        f"{len(test_recs)} test)")
+    train_ds = DeviceDataset(np.stack([load_volume(r["MRI"]) for r in tr_val])[..., None],
+                             np.array([r["label"] for r in tr_val]), store_dtype=np.float32)
+    cw = torch.tensor([0.5, 0.5], device=dev)
+
+    def fresh_state(seed, epochs=20):
+        m = generate_model(model_depth=18, compute_dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed)).to(dev)
+        return loop.create_train_state(m, loop.make_epoch_schedule(1e-3, epochs),
+                                       dropout_seed=seed)
+
+    # one fixed batch, no augmentation: the weighted CE must fall; the first
+    # step carries cuDNN's autotune of the backward convolutions (serving
+    # tuned the bf16 forward at this shape in phase 4)
+    fixed = next(iter(DeviceEpochIterator(train_ds, np.arange(BATCH), BATCH)))
+    state = fresh_state(SEED + 11)
+    fixed_losses, fixed_walls = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, _ = loop.train_step(state, fixed, cw)
+        fixed_losses.append(float(loss))  # syncs
+        fixed_walls.append(time.time() - t0)
+    autotune_s = fixed_walls[0] - statistics.median(fixed_walls[2:])
+    log(f"fixed batch, 8 steps: weighted CE {[round(v, 4) for v in fixed_losses]}")
+    log(f"first train step {fixed_walls[0]:.2f} s against {statistics.median(fixed_walls[2:]) * 1e3:.1f} "
+        f"ms later: cuDNN autotune about {autotune_s:.2f} s")
+    check(all(np.isfinite(fixed_losses)), "non-finite loss on the fixed batch")
+    check(fixed_losses[-1] < fixed_losses[0],
+          f"weighted CE did not fall on a fixed batch: {fixed_losses}")
+    del state
+
+    # the main path: cli.train_resnet3d on the card
+    train_ckpt = os.path.join(work, "train_ckpt")
+    train_argv = [f"label_file={train_csv}", f"mri_dir={train_mri}", "model_depth=18",
+                  "resnet_shortcut=B", "compute_dtype=bfloat16", f"batch_size={BATCH}",
+                  "hbm_cache=true", "augment=true", "precise_bn=true",
+                  "normalizer=scale_intensity", "n_splits=2",
+                  f"num_epochs={TRAIN_EPOCHS}", "lr=1e-3", f"checkpoint_dir={train_ckpt}"]
+    fg.gather_normalize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    results = cli_train.main(train_argv)
+    torch.cuda.synchronize()
+    train_wall = time.time() - t0
+    train_launches = fg.gather_normalize.launches
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # per fold and epoch: train, precise-BN and validation batches of 16
+    # subjects (2 each); then one test batch of 8 per fold
+    per_epoch = 3 * (-(-(len(tr_val) // 2) // BATCH))
+    expect = 2 * TRAIN_EPOCHS * per_epoch + 2 * (-(-len(test_recs) // BATCH))
+    log(f"cli.train_resnet3d: {train_wall:.1f} s (dataset upload, 2 folds x "
+        f"{TRAIN_EPOCHS} epochs, checkpoints, test); K1 launches {train_launches} "
+        f"(expected {expect}); peak memory {train_peak_gb:.2f} GB")
+    check(train_launches == expect, f"training ran K1 {train_launches} times, expected {expect}")
+    with open(os.path.join(train_ckpt, "cv_results.csv")) as f:
+        cv_rows = list(csv.reader(f))
+    check(len(cv_rows) == 1 + 2 * TRAIN_EPOCHS and all(len(r) == 19 for r in cv_rows),
+          f"cv_results.csv is {len(cv_rows)} rows of {len(cv_rows[0])} columns")
+    il, vl = cv_rows[0].index("tr_loss"), cv_rows[0].index("vl_loss")
+    cv_losses = [(float(r[il]), float(r[vl])) for r in cv_rows[1:]]
+    check(bool(np.isfinite(cv_losses).all()), f"non-finite CV losses {cv_losses}")
+    log(f"  cv_results.csv (fold, epoch, tr_loss, vl_loss, lr): "
+        f"{[(r[0], r[1], r[il], r[vl], r[-1]) for r in cv_rows[1:]]}")
+    for k in (1, 2):
+        for name in (f"best_fold{k}", f"model_fold{k}_final"):
+            check(os.path.isfile(os.path.join(train_ckpt, name, "model.pt"))
+                  and os.path.isfile(os.path.join(train_ckpt, name, ckpt.TRAIN_STATE_FILE)),
+                  f"checkpoint {name} missing")
+    check(all(np.isfinite(results["avg"][k]) for k in ("ACC", "AUC", "SPE", "MCC")),
+          f"test metrics {results['avg']}")
+    log(f"  test metrics (fold mean): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in results["avg"].items()))
+
+    # serve the trained folds: the ensemble is the mean of the folds' test
+    # probabilities
+    trained = EnsemblePredictor.from_checkpoint_dir(train_ckpt, batch_size=BATCH)
+    served = trained.predict_proba(np.stack([load_volume(r["MRI"]) for r in test_recs]))
+    pooled = np.asarray(results["pooled"]["probs"]).reshape(2, len(test_recs))
+    d_serve = float(np.abs(served[:, 1] - pooled.mean(0)).max())
+    log(f"  served trained best_fold1..2: prob_1 {np.round(served[:, 1], 4).tolist()}; "
+        f"against the test run's fold mean max |d| {d_serve:.3g}")
+    check(bool(np.isfinite(served).all()) and d_serve <= 2e-3,
+          f"serving the trained folds differs from their test run by {d_serve}")
+    del trained
+
+    # training rate on the resident path: gather + K1 + augmentation + step
+    state = fresh_state(SEED + 12)
+    it = DeviceEpochIterator(train_ds, np.arange(train_ds.n), BATCH, shuffle=True,
+                             seed=SEED, augment=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = (bt for _ in range(4) for bt in it)  # 16 steps, 4 epochs of 4
+    events, t_wall = [], None
+    for step_i in range(16):
+        if step_i == 2:
+            torch.cuda.synchronize()
+            t_wall = time.time()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loop.train_step(state, next(batches), cw)  # gather + K1 + augment + step
+        b.record()
+        if step_i >= 2:
+            events.append((a, b))
+    torch.cuda.synchronize()
+    wall = time.time() - t_wall
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    train_rate = BATCH / (step_ms / 1e3)
+    pipelined_rate = len(events) * BATCH / wall
+    train_peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"training: {train_rate:.2f} vols/s (resident, augmented, B={BATCH}: median step "
+        f"{step_ms:.2f} ms of {len(events)} after 2 of warm-up, CUDA events), "
+        f"{pipelined_rate:.2f} vols/s over the {len(events)} steps back to back (host "
+        f"clock) on {card}; peak memory {train_peak_step_gb:.2f} GB")
+
+    def step_split():
+        """One resident step, each stage between CUDA events."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        idx = it._upload(np.asarray(rng.permutation(train_ds.n)[:BATCH], np.int64))
+        ev[0].record()
+        bt = train_ds.gather_normalized(idx)
+        ev[1].record()
+        t_aug = time.perf_counter()
+        bt["image"] = augment_batch(bt["image"], it.generator, **it.aug_kw)
+        host_aug.append(1e3 * (time.perf_counter() - t_aug))
+        ev[2].record()
+        loop.forward_backward(state, bt, cw)
+        ev[3].record()
+        loop.apply_gradients(state)
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    host_aug = []
+    splits = [step_split() for _ in range(7)]
+    names = ("gather_k1_ms", "augment_ms", "forward_backward_ms", "optimizer_ms")
+    train_split = {n: statistics.median(sp[i] for sp in splits) for i, n in enumerate(names)}
+    log(f"time split of a resident step (ms; CUDA events from an idle card, host "
+        f"launch costs included; gather_k1 is K1 + the label gather; median of 7): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in train_split.items())
+        + f"; sum {sum(train_split.values()):.2f} ms; augmentation's host time "
+        f"(launches and planning) median {statistics.median(host_aug):.3f} ms")
+    aug_in = train_ds.gather_normalized(np.arange(BATCH))["image"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            augment_batch(aug_in, it.generator, **it.aug_kw)
+        torch.cuda.synchronize()
+    log("profile of 4 augmentations of a batch of 8, by host time:")
+    log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12,
+                                  max_name_column_width=60))
+    del aug_in
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _, batch in zip(range(2), it):
+            loop.train_step(state, batch, cw)
+        torch.cuda.synchronize()
+    log("profile of 2 resident train steps (device time by kernel):")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
+                                  max_name_column_width=60))
+    log("the same 2 steps by host time:")
+    log(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15,
+                                  max_name_column_width=60))
+    del state, it, train_ds, fixed
+
+    # fp32, TF32 off: three steps of a ResNet-10, card against host CPU. The
+    # card starts each step from the host's weights and Adam state: where a
+    # gradient is near zero Adam can step either way on the two sides (it
+    # moves a parameter by about lr whatever the gradient's size), and over
+    # free-running steps those flips feed the next forward
+    def make_state(device):
+        m = generate_model(model_depth=10, dropout_rate=0.0, compute_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(SEED)).to(device)
+        return loop.create_train_state(m, loop.make_epoch_schedule(1e-3, 20))
+
+    host_st, card_st = make_state(torch.device("cpu")), make_state(dev)
+    gs = torch.Generator().manual_seed(SEED + 1)
+    fp32_rows = []
+    for _ in range(3):
+        card_st.model.load_state_dict(host_st.model.state_dict())
+        if host_st.step:
+            card_st.optimizer.load_state_dict(host_st.optimizer.state_dict())
+        card_st.step = host_st.step
+        bt = {"image": torch.randn((4, 32, 38, 32, 1), generator=gs) * 2 + 1,
+              "label": torch.tensor([0, 1, 1, 0]), "mask": torch.tensor([1.0, 1.0, 1.0, 0.0])}
+        cwt = torch.tensor([0.3, 0.7])
+        l_host = float(loop.train_step(host_st, bt, cwt)[0])
+        l_card = float(loop.train_step(card_st, {k: v.to(dev) for k, v in bt.items()},
+                                       cwt.to(dev))[0])
+        h_sd = host_st.model.state_dict()
+        c_sd = {k: v.cpu() for k, v in card_st.model.state_dict().items()}
+        stats = max(float(((c_sd[k] - v).abs() / (1e-3 + 1e-3 * v.abs())).max())
+                    for k, v in h_sd.items() if ".running_" in k)
+        d_par = torch.cat([(c_sd[k] - v).abs().flatten() for k, v in h_sd.items()
+                           if v.is_floating_point() and ".running_" not in k])
+        fp32_rows.append((l_card, l_host, stats, float(d_par.max()),
+                          float((d_par <= 1e-3).float().mean())))
+    lr_max = 1e-3
+    log("ResNet-10 fp32, 3 steps at 32x38x32, card vs host CPU from the host's state "
+        "(loss card / host, BN statistics as a share of the rtol = atol = 1e-3 bound, "
+        "parameter max |d| against 2 lr, share within 1e-3): "
+        + "; ".join(f"{a:.7f} / {b:.7f}, {c:.3g}, {d:.3g}, {e:.6f}"
+                    for a, b, c, d, e in fp32_rows))
+    check(all(abs(a - b) <= 1e-3 + 1e-3 * abs(b) and c <= 1.0 and d <= 2 * lr_max
+              and e >= 0.999 for a, b, c, d, e in fp32_rows),
+          "card and host fp32 train steps differ beyond their bounds")
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 8. result -----------------------------------------------------
+    # ---- 9. result -----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     kernels = {"kernels": [{
         "name": "fused_gather_normalize",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": serve_launches + resident_launches + ext_k1,
+        "launches": serve_launches + resident_launches + ext_k1 + train_launches,
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
+        "launches_training": train_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -744,6 +986,17 @@ def main() -> int:
                     "extraction_subjects_per_s": rate,
                     "extraction_split_ms": split,
                     "extraction_peak_gb": peak_gb,
+                    "training_vols_per_s": train_rate,
+                    "training_vols_per_s_pipelined": pipelined_rate,
+                    "training_step_split_ms": train_split,
+                    "training_step_median_ms": step_ms,
+                    "training_augment_host_ms": statistics.median(host_aug),
+                    "training_first_step_s": fixed_walls[0],
+                    "training_autotune_s": autotune_s,
+                    "training_cli_s": train_wall,
+                    "training_peak_gb": train_peak_step_gb,
+                    "training_cli_peak_gb": train_peak_gb,
+                    "training_test_avg": results["avg"],
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

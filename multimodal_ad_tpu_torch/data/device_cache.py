@@ -7,8 +7,9 @@ batches are sampled on the device: gather by index, then the per-volume
 min-max normalize of K1 (ops/fused_gather.py), one fused pass. The host
 sends only index vectors.
 
-The training epoch iterator (DeviceEpochIterator) comes with the training
-slice.
+`DeviceEpochIterator` walks a subset of the store once per epoch for the
+training path: a per-epoch shuffle, K1 (or `adaptive_normal`) and, for
+training, augmentation on the device (ops/augment.py).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..ops.augment import augment_batch
 from ..ops.fused_gather import _as_indices, gather_normalize
+from ..ops.normalize import NORMALIZERS
 
 
 def quantize_uint8(volumes: np.ndarray) -> np.ndarray:
@@ -119,6 +122,89 @@ class DeviceDataset:
                 chunk = np.concatenate(
                     [chunk, order[: batch_size - len(chunk)]])
             yield chunk.astype(np.int32)
+
+
+class DeviceEpochIterator:
+    """Epoch iterator over a device-resident dataset subset.
+
+    Yields device batches {'image': (B, X, Y, Z, C) float32 normalized,
+    'label': (B,) int32, 'mask': (B,) float32, 'subject': names of the real
+    rows}. Each epoch's order is ``np.random.default_rng((seed, epoch))``'s
+    shuffle of `indices` (epoch counts the iterations started), as in the
+    TPU package. A ragged last batch is padded with real rows cycled from
+    the epoch order and the mask marks them (repeating one row would bias
+    BatchNorm's batch statistics). ``normalizer="scale_intensity"`` gathers
+    and normalizes in one K1 launch (`DeviceDataset.gather_normalized`);
+    ``"adaptive_normal"`` gathers, then normalizes with ops/normalize.py.
+    With `augment`, `augment_batch` follows, its draws from a host
+    generator seeded with `seed`. The host sends only index vectors."""
+
+    device_resident = True
+
+    def __init__(self, dataset: DeviceDataset, indices, batch_size: int,
+                 shuffle: bool = False, seed: int = 0,
+                 normalizer: str = "scale_intensity", subjects=None,
+                 augment: bool = False, flip_prob: float = 0.3,
+                 rotate_prob: float = 0.3, zoom_prob: float = 0.3,
+                 scale_prob: float = 0.0):
+        if normalizer not in NORMALIZERS:
+            raise ValueError(f"unknown normalizer {normalizer!r}")
+        self.ds = dataset
+        self.indices = np.asarray(indices, np.int64)
+        _as_indices(self.indices, dataset.n)  # range-checked once, here
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.normalizer = normalizer
+        self.subjects = subjects
+        self.augment = augment
+        self.aug_kw = dict(flip_prob=flip_prob, rotate_prob=rotate_prob,
+                           zoom_prob=zoom_prob, scale_prob=scale_prob)
+        self.generator = torch.Generator().manual_seed(seed)
+        self._epoch = 0
+
+    def __len__(self):
+        return -(-len(self.indices) // self.batch_size)
+
+    def _upload(self, chunk: np.ndarray) -> torch.Tensor:
+        # a few bytes: an asynchronous copy returns once they are staged,
+        # without waiting for the card
+        return torch.from_numpy(chunk).to(self.ds.device, non_blocking=True)
+
+    def _batch(self, chunk: np.ndarray) -> dict:
+        idx = self._upload(chunk)
+        if self.normalizer == "scale_intensity":
+            batch = self.ds.gather_normalized(idx)  # K1
+        else:
+            batch = self.ds.gather(idx)
+            batch["image"] = NORMALIZERS[self.normalizer](batch["image"])
+        if self.augment:
+            batch["image"] = augment_batch(batch["image"], self.generator,
+                                           **self.aug_kw)
+        return batch
+
+    def __iter__(self):
+        order = self.indices.copy()
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
+        bs = self.batch_size
+        for i in range(0, len(order), bs):
+            chunk = order[i:i + bs]
+            n_real = len(chunk)
+            if n_real < bs:
+                pad = bs - n_real
+                extra = np.concatenate(
+                    [order] * (pad // max(len(order), 1) + 1))[:pad]
+                chunk = np.concatenate([chunk, extra])
+            batch = self._batch(chunk)
+            batch["mask"] = (torch.arange(bs, device=self.ds.device)
+                             < n_real).to(torch.float32)
+            real = chunk[:n_real]
+            batch["subject"] = ([self.subjects[j] for j in real]
+                                if self.subjects is not None else
+                                [str(j) for j in real])
+            yield batch
 
 
 def build_device_dataset(records, device: str | torch.device = "cuda",

@@ -38,16 +38,21 @@ class VolumeBatcher:
     Yields host dicts {'image': (B, X, Y, Z, 1) f32 raw intensities,
     'label': (B,) i32, 'mask': (B,) f32, 'subject': list[str]} with B padded
     to `batch_size` (`mask` marks the real rows, which come first, and
-    `subject` names only them). Normalization runs on the device.
-    Shuffling, other modalities and host transforms come with the training
-    slice."""
+    `subject` names only them). Normalization runs on the device. With
+    `shuffle`, each epoch's order is ``np.random.default_rng((seed,
+    epoch))``'s shuffle (epoch counts the iterations started), as in the
+    TPU package. Other modalities and host transforms (data/transforms.py)
+    are not ported."""
 
     def __init__(self, records, batch_size: int = 8, num_threads: int = 8,
-                 loader=load_volume):
+                 loader=load_volume, shuffle: bool = False, seed: int = 0):
         self.records = list(records)
         self.batch_size = batch_size
         self.num_threads = num_threads
         self.loader = loader
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
 
     def __len__(self):
         return (len(self.records) + self.batch_size - 1) // self.batch_size
@@ -56,10 +61,14 @@ class VolumeBatcher:
         return self.loader(rec["MRI"])[..., None], rec["label"], rec["Subject"]
 
     def _chunks(self):
-        """(indices, n_real) per batch; a ragged last batch is padded with
-        real samples cycled from the order, so BatchNorm batch statistics
-        see real voxels and the mask keeps them out of the results."""
+        """(indices, n_real) per batch of the next epoch's order; a ragged
+        last batch is padded with real samples cycled from the order, so
+        BatchNorm batch statistics see real voxels and the mask keeps them
+        out of the results."""
         order = np.arange(len(self.records))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
         bs = self.batch_size
         chunks = []
         for i in range(0, len(order), bs):

@@ -20,6 +20,14 @@ a plain Conv3d and cuDNN picks its algorithm.
 Public forward takes the channels-last (B, X, Y, Z, C) layout and works in
 NCDHW inside. With ``compute_dtype=torch.bfloat16`` the forward runs under
 bf16 autocast over fp32 parameters, as the TPU package's default does.
+
+Training semantics held to the TPU package's flax modules:
+
+- `FlaxBatchNorm3d` keeps the *biased* batch variance in `running_var`, as
+  flax does (torch's stock BatchNorm keeps the unbiased one);
+- `GeneratorDropout` draws its mask from an explicit `torch.Generator`
+  (set by `set_dropout_generator`), so a training run's masks follow its
+  seed and not the global RNG. The draws differ from the TPU package's.
 """
 
 from __future__ import annotations
@@ -52,9 +60,59 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
                      bias=False)
 
 
+class FlaxBatchNorm3d(nn.BatchNorm3d):
+    """BatchNorm3d whose running variance takes the biased batch variance,
+    as flax's BatchNorm does (the TPU package's models/resnet3d.py:111-117).
+
+    The stock train-mode call blends the unbiased variance u into
+    `running_var` with factor f (the momentum, or 1/num_batches_tracked
+    with ``momentum=None``): new = (1 - f) * old + f * u. The update f * u
+    is then rescaled by (n - 1) / n, n = B * D * H * W, one elementwise op
+    on C values; the activations are not read again. Eval mode and the
+    state_dict are the stock module's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        # the stock op updates a copy; the result is a new buffer tensor, as
+        # autograd keeps the updated one for the backward
+        old = self.running_var
+        self.running_var = old.clone()
+        out = super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                 else self.momentum)
+            keep = old * (1.0 - f)  # new - keep = f * u
+            self.running_var = keep.lerp_(self.running_var, (n - 1) / n)
+        return out
+
+
 def _bn(c: int) -> nn.BatchNorm3d:
     # eps 1e-5 as in the TPU package; torch momentum 0.1 == flax momentum 0.9
-    return nn.BatchNorm3d(c, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm3d(c, eps=1e-5, momentum=0.1)
+
+
+class GeneratorDropout(nn.Dropout):
+    """Dropout whose mask comes from `self.generator` (a torch.Generator on
+    the input's device) when one is set, else from the global RNG. Keeps
+    each element with probability 1 - p and scales it by 1 / (1 - p), as
+    flax's Dropout does."""
+
+    generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator | None):
+    """Give every GeneratorDropout of `model` the generator `generator`."""
+    for m in model.modules():
+        if isinstance(m, GeneratorDropout):
+            m.generator = generator
 
 
 class ShortcutA(nn.Module):
@@ -132,7 +190,8 @@ class ResNet3D(nn.Module):
     def __init__(self, depth: int = 18, num_classes: int = 2,
                  in_channels: int = 1, shortcut_type: str = "B",
                  head: str = "classifier", dropout_rate: float = 0.5,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if depth not in DEPTH_BLOCKS:
             raise ValueError(f"unsupported depth {depth}")
@@ -165,12 +224,19 @@ class ResNet3D(nn.Module):
         if head == "classifier":
             self.conv_seg = nn.Sequential(
                 nn.AdaptiveAvgPool3d(1), nn.Flatten(),
-                nn.Dropout(dropout_rate), nn.Linear(FC_IN[depth], num_classes))
+                GeneratorDropout(dropout_rate),
+                nn.Linear(FC_IN[depth], num_classes))
 
+        # `generator` (a CPU torch.Generator) makes the draws a seed's own
         for m in self.modules():
             if isinstance(m, nn.Conv3d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",
-                                        nonlinearity="relu")
+                                        nonlinearity="relu", generator=generator)
+            elif isinstance(m, nn.Linear) and generator is not None:
+                # nn.Linear's own init, drawn from the generator
+                bound = 1.0 / m.in_features ** 0.5
+                nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
 
     def features(self, x):
         """NCDHW input -> layer4 feature map (NCDHW)."""
@@ -210,9 +276,10 @@ def image_encoder(depth=18, in_channels=1, shortcut_type="B",
 def generate_model(model_type="resnet", model_depth=18, resnet_shortcut="B",
                    nb_class=2, dropout_rate=0.5, in_channels=1,
                    compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                   **_ignored):
+                   generator: torch.Generator | None = None, **_ignored):
     """Config-driven factory. Parameters are created in `param_dtype`
-    (float32); `compute_dtype` selects the autocast type of the forward."""
+    (float32); `compute_dtype` selects the autocast type of the forward;
+    `generator` draws the initial weights."""
     if model_type != "resnet":
         raise ValueError(f"unsupported model_type {model_type!r}")
     if model_depth not in DEPTH_BLOCKS:
@@ -220,5 +287,5 @@ def generate_model(model_type="resnet", model_depth=18, resnet_shortcut="B",
     model = ResNet3D(depth=model_depth, num_classes=nb_class,
                      in_channels=in_channels, shortcut_type=resnet_shortcut,
                      head="classifier", dropout_rate=dropout_rate,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, generator=generator)
     return model.to(dtype=param_dtype)

@@ -8,6 +8,9 @@
   OIDHW, BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
   running_var, and the classifier head's Dense kernel transposed into
   conv_seg.3.
+- `load_optax_adam_state` loads the TPU package's Adam moments (optax
+  ScaleByAdamState mu / nu / count) into a torch Adam or AdamW over this
+  package's ResNet3D, so a fold trained there resumes here;
 - `load_medicalnet_weights` merges a MedicalNet checkpoint into a model by
   key intersection (the reference's partial-transfer semantics), with a
   report of loaded / skipped / mismatched names.
@@ -104,8 +107,15 @@ def state_dict_from_flax(variables, depth: int, shortcut_type: str = "B"
     arrays. The classifier head (flax 'Dense_0') becomes conv_seg.3 when
     present. Every BatchNorm also gets its num_batches_tracked buffer (0),
     so the result loads with strict=True."""
+    return _resnet3d_from_flax(variables, depth, shortcut_type,
+                               ("params", "batch_stats"))
+
+
+def _resnet3d_from_flax(variables, depth, shortcut_type, collections):
     out = OrderedDict()
     for tname, coll, fpath, tf in resnet3d_name_map(depth, shortcut_type):
+        if coll not in collections:
+            continue
         w = np.asarray(_get_path(variables[coll], fpath), np.float32)
         if tf is _to_dhwio:
             w = _to_oidhw(w)
@@ -120,6 +130,33 @@ def state_dict_from_flax(variables, depth: int, shortcut_type: str = "B"
         out[HEAD_NAMES[1]] = torch.from_numpy(
             np.array(dense["bias"], np.float32))
     return out
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, model, mu, nu,
+                          count) -> torch.optim.Optimizer:
+    """Load the TPU package's Adam moments into `optimizer` (a torch Adam or
+    AdamW over `model.parameters()`, `model` this package's ResNet3D).
+
+    `mu` and `nu` are the optax ScaleByAdamState's first and second
+    moments, flax parameter trees (nested dicts of arrays) laid out as the
+    model's 'params'; `count` is its update count. Each moment is
+    converted as its parameter is (kernels DHWIO -> OIDHW, the Dense kernel
+    transposed) into torch's exp_avg / exp_avg_sq, with step = count."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    moments = [_resnet3d_from_flax({"params": m}, model.depth, model.shortcut_type,
+                                   ("params",)) for m in (mu, nu)]
+    step = float(np.asarray(count))
+    for group in optimizer.param_groups:
+        # torch keeps a fused or capturable optimizer's step on the device
+        on_device = group.get("fused") or group.get("capturable")
+        for p in group["params"]:
+            name = names[id(p)]
+            optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32,
+                                     device=p.device if on_device else "cpu"),
+                "exp_avg": moments[0][name].to(p.device, p.dtype),
+                "exp_avg_sq": moments[1][name].to(p.device, p.dtype)}
+    return optimizer
 
 
 def load_torch_state_dict(path: str) -> dict:

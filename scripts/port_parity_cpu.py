@@ -194,6 +194,94 @@ def main():
                    np.asarray([r[1:] for r in rows_a[1:]], float),
                    np.asarray([r[1:] for r in rows_b[1:]], float))
 
+    training_parity()
+
+
+def training_parity():
+    """The training slice: 3 fp32 train steps of ResNet-10 (both
+    shortcuts), precise-BN, the schedule, the augmentation geometry and the
+    epoch iterator, each against the JAX package."""
+    from multimodal_ad_tpu.data import device_cache as jdc
+    from multimodal_ad_tpu.ops import augment as jaug
+    from multimodal_ad_tpu.train import loop as jloop
+    from multimodal_ad_tpu_torch.data import device_cache as tdc
+    from multimodal_ad_tpu_torch.ops import augment as taug
+    from multimodal_ad_tpu_torch.train import loop as tloop
+
+    shape, lr, cw = (16, 20, 16, 1), 1e-3, np.array([0.3, 0.7], np.float32)
+    brng = np.random.default_rng(8)
+    batches = [{"image": (brng.normal(size=(4, *shape)) * 2 + 1).astype(np.float32),
+                "label": np.array([0, 1, 1, 0], np.int32),
+                "mask": np.array([1, 1, 1, 0], np.float32)} for _ in range(3)]
+    for sc in ("A", "B"):
+        jm = jgen(model_depth=10, resnet_shortcut=sc, dropout_rate=0.0,
+                  compute_dtype=jnp.float32)
+        v = random_flax_variables(jm, shape, seed=7)
+        tx = jloop.make_optimizer(jloop.make_epoch_schedule(lr, 20), 1e-4, 1.0, "adam")
+        js = jloop.TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                              opt_state=tx.init(v["params"]),
+                              epoch=jnp.zeros((), jnp.int32), tx=tx, apply_fn=jm.apply)
+        tm = generate_model(model_depth=10, resnet_shortcut=sc, dropout_rate=0.0,
+                            compute_dtype=torch.float32)
+        tm.load_state_dict(state_dict_from_flax(jax.tree_util.tree_map(np.asarray, v), 10, sc))
+        ts = tloop.create_train_state(tm, tloop.make_epoch_schedule(lr, 20))
+        step = jloop.make_train_step(2)
+        rel = 0.0
+        for b in batches:
+            js, jl, _ = step(js, {k: jnp.asarray(x) for k, x in b.items()},
+                             jnp.asarray(cw), jax.random.PRNGKey(0))
+            tl, _ = tloop.train_step(ts, {k: torch.from_numpy(x) for k, x in b.items()},
+                                     torch.from_numpy(cw))
+            rel = max(rel, abs(float(tl) - float(jl)) / abs(float(jl)))
+        ref = state_dict_from_flax(jax.tree_util.tree_map(
+            np.asarray, {"params": js.params, "batch_stats": js.batch_stats}), 10, sc)
+        ours = tm.state_dict()
+        stats = max(float((ours[k] - x).abs().max()) for k, x in ref.items() if ".running_" in k)
+        d = torch.cat([(ours[k] - x).abs().flatten() for k, x in ref.items()
+                       if ".running_" not in k and "num_batches" not in k])
+        print(f"{'3 fp32 train steps ResNet-10 ' + sc + ': loss max rel':58s} {rel:.3e}")
+        print(f"{'  BN running stats':58s} max|d| {stats:.3e}")
+        print(f"{'  parameters':58s} max|d| {float(d.max()):.3e}, "
+              f"{float((d <= 1e-5).float().mean()):.7f} within 1e-5")
+        if sc == "B":
+            pb = [{k: x for k, x in b.items()} for b in batches[:2]]
+            js = jloop.recompute_batch_stats(js, [{k: jnp.asarray(x) for k, x in b.items()}
+                                                  for b in pb])
+            tloop.recompute_batch_stats(ts, [{k: torch.from_numpy(x) for k, x in b.items()}
+                                             for b in pb])
+            ref = state_dict_from_flax(jax.tree_util.tree_map(
+                np.asarray, {"params": js.params, "batch_stats": js.batch_stats}), 10, sc)
+            stats = max(float((tm.state_dict()[k] - x).abs().max())
+                        for k, x in ref.items() if ".running_" in k)
+            print(f"{'precise-BN (2 batches) running stats':58s} max|d| {stats:.3e}")
+
+    for epochs in (5, 20, 100):
+        js = jloop.make_epoch_schedule(lr, epochs)
+        tsch = tloop.make_epoch_schedule(lr, epochs)
+        rel = max(abs(tsch(k) - float(js(k))) / float(js(k)) for k in range(31))
+        print(f"{f'schedule, updates 0-30, {epochs} epochs: max rel':58s} {rel:.3e}")
+
+    vol = np.random.default_rng(2).random((9, 11, 8, 2)).astype(np.float32)
+    worst = 0.0
+    for angle, zoom in ((0.05, 1.0), (-0.04, 0.96), (0.6, 0.8), (1.3, 1.25)):
+        ref = np.asarray(jaug.rotate_zoom_volume(jnp.asarray(vol), jnp.float32(angle),
+                                                 jnp.float32(zoom)))
+        ours = taug.rotate_zoom_volume(torch.from_numpy(vol), angle, zoom).numpy()
+        worst = max(worst, float(np.abs(ours - ref).max()))
+    print(f"{'rotate_zoom_volume, 4 angle/zoom pairs':58s} max|d| {worst:.3e}")
+
+    vols = (np.random.default_rng(5).normal(size=(11, 6, 7, 5, 1)) * 40 + 100).astype(np.float32)
+    labels = (np.arange(11) % 2).astype(np.int32)
+    plan, worst = [9, 3, 0, 4, 7, 1, 10], 0.0
+    for norm in ("scale_intensity", "adaptive_normal"):
+        kw = dict(batch_size=3, shuffle=True, seed=4, normalizer=norm)
+        jit = jdc.DeviceEpochIterator(jdc.DeviceDataset(vols, labels), plan, **kw)
+        tit = tdc.DeviceEpochIterator(tdc.DeviceDataset(vols, labels, device="cpu"), plan, **kw)
+        for a, b in zip([x for _ in range(2) for x in jit], [x for _ in range(2) for x in tit]):
+            assert a["subject"] == b["subject"]
+            worst = max(worst, float(np.abs(b["image"].numpy() - np.asarray(a["image"])).max()))
+    print(f"{'DeviceEpochIterator images, 2 epochs, both normalizers':58s} max|d| {worst:.3e}")
+
 
 if __name__ == "__main__":
     main()

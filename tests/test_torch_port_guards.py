@@ -1,8 +1,9 @@
 """Guards of the port: it imports without JAX or the JAX package, names
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
 kernels K1 and K2 agree with their plain versions on a card (those tests
-carry the `cuda` marker and skip where there is none). This file imports
-no JAX, so it also runs on the card's machine."""
+carry the `cuda` marker and skip where there is none), as do three fp32
+train steps and the training epoch iterator. This file imports no JAX, so
+it also runs on the card's machine."""
 
 import os
 import pkgutil
@@ -83,6 +84,34 @@ def test_extraction_runs_without_sklearn_pandas_or_matplotlib(tmp_path):
     assert os.path.isfile(tmp_path / "out" / "roi_features.csv")
 
 
+def test_training_runs_without_sklearn_pandas_matplotlib_or_tensorboard(tmp_path):
+    """The card's machine has none of them: the training CLI (resident,
+    augmented, precise-BN) and cli.evaluate run end to end on the CPU with
+    them (and JAX) blocked; the ROC plot is skipped with a warning."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'multimodal_ad_tpu', 'sklearn',"
+        " 'pandas', 'matplotlib', 'tensorboard'):\n"
+        "    sys.modules[name] = None\n"
+        "from multimodal_ad_tpu_torch.cli.evaluate import main as evaluate\n"
+        "from multimodal_ad_tpu_torch.cli.train_resnet3d import main as train\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir\n"
+        f"root = {str(tmp_path)!r}\n"
+        "csv_path, mri = make_adni_dir(root, n_per_class=5, shape=(12, 12, 12))\n"
+        "args = ['--device', 'cpu', 'label_file=' + csv_path, 'mri_dir=' + mri,"
+        " 'num_epochs=1', 'batch_size=4', 'n_splits=2', 'model_depth=10',"
+        " 'compute_dtype=float32', 'loader_threads=2', 'checkpoint_dir=' + root + '/ckpt']\n"
+        "train(args + ['hbm_cache=true', 'augment=true', 'precise_bn=true'])\n"
+        "evaluate(args)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert res.stdout.count("[warn] ROC plot skipped") == 2
+    assert os.path.isfile(tmp_path / "ckpt" / "cv_results.csv")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -123,6 +152,22 @@ def test_default_device_raises_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         extract_main(["--atlas", atlas, "--out", str(tmp_path / "out"),
                       f"label_file={labels}", f"mri_dir={tmp_path}"])
+    from multimodal_ad_tpu_torch.cli.evaluate import main as evaluate_main
+    from multimodal_ad_tpu_torch.cli.train_resnet3d import main as train_main
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.train.cv import test_models, train_cv
+
+    cfg_args = [f"label_file={labels}", f"mri_dir={tmp_path}",
+                f"checkpoint_dir={tmp_path / 'ckpt'}"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(cfg_args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_main(cfg_args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cv(Config(label_file=labels, mri_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_models(Config(), [])
+    assert not os.path.exists(tmp_path / "ckpt")  # nothing ran on the host
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -345,3 +390,80 @@ def test_k1_out_of_range_device_index_gives_a_nan_row(cuda):
     assert torch.isnan(out[1].float()).all() and torch.isnan(out[2].float()).all()
     ref = tfg.gather_normalize_plain(src, idx[[0, 3]], torch.bfloat16)
     assert torch.equal(out[[0, 3]], ref)
+
+
+def _train_three_steps(device):
+    """Three fp32 train steps of a seeded ResNet-10 at 16x20x16, B = 4 (one
+    padded row), dropout 0; returns the losses and the state_dict."""
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.train import loop
+
+    model = generate_model(model_depth=10, dropout_rate=0.0, compute_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0)).to(device)
+    state = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20))
+    g = torch.Generator().manual_seed(1)
+    cw = torch.tensor([0.3, 0.7], device=device)
+    losses = []
+    for _ in range(3):
+        batch = {"image": (torch.randn((4, 16, 20, 16, 1), generator=g) * 2 + 1).to(device),
+                 "label": torch.tensor([0, 1, 1, 0], device=device),
+                 "mask": torch.tensor([1.0, 1.0, 1.0, 0.0], device=device)}
+        loss, _ = loop.train_step(state, batch, cw)
+        losses.append(float(loss))
+    return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_host(cuda):
+    """fp32 with TF32 off (resolve_device): card and host agree within 1e-3
+    in the losses and the BN statistics; parameters within 6 lr, and 99.9 %
+    of them within 1e-3 (Adam moves a parameter by about lr whatever its
+    gradient's size, so where a gradient is near zero the two can step in
+    opposite directions)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+
+    resolve_device("cuda")
+    card_losses, card = _train_three_steps(cuda)
+    host_losses, host = _train_three_steps(torch.device("cpu"))
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-3, atol=1e-3)
+    deltas = []
+    for name, v in host.items():
+        if ".running_" in name:
+            torch.testing.assert_close(card[name], v, rtol=1e-3, atol=1e-3, msg=name)
+        elif v.is_floating_point():
+            deltas.append((card[name] - v).abs().flatten())
+    d = torch.cat(deltas)
+    assert float(d.max()) <= 6e-3
+    assert float((d <= 1e-3).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("augment", [False, True])
+def test_epoch_iterator_on_the_card_launches_k1(cuda, augment):
+    """DeviceEpochIterator on the card gathers and normalizes with K1 (one
+    launch a batch) and equals its host batches within 1e-6, augmented or
+    not (the augmentation draws come from a host generator)."""
+    from multimodal_ad_tpu_torch.data.device_cache import (DeviceDataset,
+                                                           DeviceEpochIterator)
+
+    g = torch.Generator().manual_seed(2)
+    vols = (torch.randn((9, 20, 22, 18, 1), generator=g) * 50 + 100).numpy()
+    labels = np.arange(9) % 2
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ds = DeviceDataset(vols, labels, device=dev, store_dtype=np.float32)
+        it = DeviceEpochIterator(ds, [8, 1, 2, 5, 0, 7, 3], 3, shuffle=True, seed=5,
+                                 augment=augment, flip_prob=0.5, rotate_prob=0.5,
+                                 zoom_prob=0.5)
+        before = tfg.gather_normalize.launches
+        runs[dev] = [b for _ in range(2) for b in it]
+        torch.cuda.synchronize()
+        runs[dev + "_launches"] = tfg.gather_normalize.launches - before
+    assert runs["cuda_launches"] == len(runs["cuda"]) == 6
+    assert runs["cpu_launches"] == 0
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        assert b["image"].device.type == "cuda"
+        torch.testing.assert_close(b["image"].cpu(), a["image"], rtol=0, atol=1e-6)
+        assert torch.equal(b["mask"].cpu(), a["mask"])
+        assert torch.equal(b["label"].cpu(), a["label"])
+        assert b["subject"] == a["subject"]

@@ -57,7 +57,27 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    step from the host's state (losses and BN statistics rtol = atol =
    1e-3; parameters within 2 lr, 99.9 % of them within 1e-3: Adam can step
    either way where a gradient is near zero);
-9. one JSON line {"kernels": [...]} and, last, the device line.
+9. U-Net classifier training on phase 8's dataset: the host-planned
+   augmentation (K1 + `apply_plans`) on the card against the host CPU for
+   the same plans (every combination of flip, rotation and zoom; 1e-6);
+   8 AdamW steps of a fresh UNet3DClassifier (base 32, bf16) on one fixed
+   batch at a constant rate, whose CE must fall, the first step timed
+   (cuDNN autotune); the step rate (median of 12 after 2 of warm-up, CUDA
+   events), its split (K1 + augmentation, forward + backward, optimizer),
+   peak memory and a profile of two steps; two streamed epochs, for the
+   share of time the card waits on the host's decode; then
+   `cli.train_unet3d` (augment, 2 epochs, lr 1e-3): K1 launched on every
+   batch, finite losses, the 19-column unet_results.csv, best_model's fp32
+   logits on the card against the host CPU (2e-3); and the JAX package's
+   small learning recipe (best validation AUC >= 0.85);
+10. the denoising autoencoder (UNet3D 64/128/256/512, bf16, batch 8): its
+   step time, rate, first step, peak memory and profile;
+   `train_unet_autoencoder` (2 epochs), `load_autoencoder` and
+   `extract_unet_features` from it over phase 7's 10 test subjects: K1 and
+   K2 launched, CSV shapes, finite values, ROI features that differ from
+   phase 7's untrained network's; the JAX package's small recipe (best
+   validation MSE < 0.05);
+11. one JSON line {"kernels": [...]} and, last, the device line.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -187,6 +207,358 @@ def bf16_ulps(torch, a, b):
     ia = a.view(torch.int16).to(torch.int32)
     ib = b.view(torch.int16).to(torch.int32)
     return int((ia - ib).abs().max())
+
+
+def step_events(torch, fn, n, warmup=2):
+    """Run `fn()` warmup + n times back to back, each between CUDA events;
+    returns (median ms of the last n, host wall s of the first call)."""
+    events, first = [], None
+    for i in range(warmup + n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        a.record()
+        fn()
+        b.record()
+        if i == 0:
+            b.synchronize()
+            first = time.time() - t0
+        if i >= warmup:
+            events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events), first
+
+
+def top_kernels(torch, fn, rows=12):
+    """The device-time table of `fn()` under torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
+                                     max_name_column_width=60)
+
+
+def unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records):
+    """Phase 9: UNet3DClassifier (base 32, bf16) training on the card."""
+    from multimodal_ad_tpu_torch.cli import train_unet3d as cli_unet
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.data.pipeline import VolumeBatcher, load_volume
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.data.transforms import (AugmentPlan, VolumeTransform,
+                                                         apply_plans)
+    from multimodal_ad_tpu_torch.models.unet3d import UNet3DClassifier
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
+    from multimodal_ad_tpu_torch.train import checkpoint as ckpt
+    from multimodal_ad_tpu_torch.train import loop
+    from multimodal_ad_tpu_torch.train.cv import _device_batches
+    from multimodal_ad_tpu_torch.train.single_split import (single_split,
+                                                            train_unet_classifier)
+
+    log(f"== 9. U-Net classifier training: UNet3DClassifier base 32, bf16 autocast, "
+        f"91x109x91, batch {BATCH}, host-planned augmentation")
+    out = {}
+    u_train, u_val, _ = single_split(records, 42)
+    raw_host = torch.from_numpy(np.stack([load_volume(r["MRI"]) for r in u_train[:BATCH]])
+                                [..., None])
+    labels = torch.tensor([r["label"] for r in u_train[:BATCH]], device=dev)
+    raw = raw_host.to(dev)
+
+    # the card's augmentation against its host-CPU version, for the same
+    # plans: every combination of flip, rotation and zoom, and the identity
+    plans = [AugmentPlan(True, 0.04, 0.96), AugmentPlan(False, -0.05, None),
+             AugmentPlan(False, None, 0.951), AugmentPlan(True, None, None), AugmentPlan(),
+             AugmentPlan(False, 0.01, 0.99), AugmentPlan(True, -0.02, None),
+             AugmentPlan(True, None, 0.97)]
+    card_aug = apply_plans(scale_intensity(raw), plans)
+    host_aug = apply_plans(scale_intensity(raw_host), plans)
+    aug_err = float((card_aug.cpu() - host_aug).abs().max())
+    bit_equal = torch.equal(card_aug.cpu(), host_aug)
+    log(f"augmentation (K1 + apply_plans), card vs host CPU, 8 full-size volumes: max |d| "
+        f"{aug_err:.3g}, bit-equal {bit_equal} (bound 1e-6)")
+    check(aug_err <= 1e-6, f"card and host augmentation differ by {aug_err}")
+    out["augment_card_vs_host_max_abs"] = aug_err
+    del host_aug, card_aug
+    t0 = time.perf_counter()
+    tf = VolumeTransform(augment=True, seed=42)
+    for i in range(100):
+        tf.plan(i, 0)
+    out["plan_host_ms_per_volume"] = 1e3 * (time.perf_counter() - t0) / 100
+    aug_ms, _ = step_events(torch, lambda: apply_plans(scale_intensity(raw), plans), 5)
+    out["k1_augment_ms"] = aug_ms
+    log(f"K1 + apply_plans of those plans: {aug_ms:.3f} ms a batch (CUDA events, median of "
+        f"5); planning {out['plan_host_ms_per_volume']:.4f} ms a volume on the host")
+
+    # one fixed batch, a constant rate: the plain CE must fall; the first
+    # step carries cuDNN's autotune of this network's convolutions
+    fixed = {"image": scale_intensity(raw), "label": labels,
+             "mask": torch.ones(BATCH, device=dev)}
+    ones = torch.ones(2, device=dev)
+    model = UNet3DClassifier(generator=torch.Generator().manual_seed(SEED + 21)).to(dev)
+    state = loop.create_train_state(model, lambda _: 1e-3, 1e-4, grad_clip_norm=0.0,
+                                    optimizer="adamw")
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(loop.train_step(state, fixed, ones)[0]))
+        walls.append(time.time() - t0)
+    out["first_step_s"] = walls[0]
+    out["autotune_s"] = walls[0] - statistics.median(walls[2:])
+    log(f"fixed batch, 8 AdamW steps at a constant 1e-3: CE {[round(v, 4) for v in losses]}")
+    log(f"first train step {walls[0]:.2f} s against {statistics.median(walls[2:]) * 1e3:.1f} ms "
+        f"later (cudnn.benchmark {torch.backends.cudnn.benchmark}): autotune about "
+        f"{out['autotune_s']:.2f} s")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"CE did not fall on a fixed batch: {losses}")
+
+    # the rate: K1 + host-planned augmentation + step on resident raw batches
+    tf_plans = [[tf.plan(i, e) for i in range(BATCH)] for e in range(2)]
+    n = 0
+
+    def step():
+        nonlocal n
+        x = apply_plans(scale_intensity(raw), tf_plans[n % 2])
+        n += 1
+        loop.train_step(state, {"image": x, "label": labels, "mask": fixed["mask"]}, ones)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"], _ = step_events(torch, step, 12)
+    out["vols_per_s"] = BATCH / (out["step_ms"] / 1e3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def split_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        x = apply_plans(scale_intensity(raw), tf_plans[0])
+        ev[1].record()
+        loop.forward_backward(state, {"image": x, "label": labels, "mask": fixed["mask"]}, ones)
+        ev[2].record()
+        loop.apply_gradients(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    splits = [split_step() for _ in range(5)]
+    names = ("k1_augment_ms", "forward_backward_ms", "optimizer_ms")
+    out["split_ms"] = {k: statistics.median(sp[i] for sp in splits) for i, k in enumerate(names)}
+    log(f"training: {out['vols_per_s']:.2f} vols/s (B={BATCH}: median step {out['step_ms']:.2f} ms "
+        f"of 12 after 2 of warm-up, CUDA events; K1 + augmentation + forward + backward + "
+        f"AdamW) on {card}; peak memory {out['peak_gb']:.2f} GB")
+    log("time split of a step (ms; CUDA events from an idle card, median of 5): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["split_ms"].items()))
+    log("profile of 2 train steps (device time by kernel):")
+    log(top_kernels(torch, lambda: [step() for _ in range(2)]))
+
+    # streaming: how long the card waits for the host's NIfTI decode
+    loader = VolumeBatcher(u_train, batch_size=BATCH, shuffle=True, seed=42,
+                           transform=VolumeTransform(augment=True, seed=42))
+    dev_ms = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(2):
+        for bt in _device_batches(loader, dev, "scale_intensity", 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loop.train_step(state, bt, ones)
+            b.record()
+            dev_ms.append((a, b))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    busy = sum(a.elapsed_time(b) for a, b in dev_ms) / 1e3
+    out["streamed_wall_s"], out["streamed_step_s"] = wall, busy
+    out["streamed_wait_share"] = 1 - busy / wall
+    log(f"streamed epochs (VolumeBatcher, pure-Python NIfTI decode, 2 x {len(dev_ms) // 2} "
+        f"batches): {wall:.2f} s wall, steps {busy:.2f} s on the card: the card waits on the "
+        f"host {out['streamed_wait_share']:.1%} of the time")
+    del state, model, fixed, raw
+
+    # the main path: cli.train_unet3d on the card
+    unet_ckpt = os.path.join(work, "unet_ckpt")
+    fg.gather_normalize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    best_auc = cli_unet.main([
+        "--device", "cuda", f"label_file={train_csv}", f"mri_dir={train_mri}",
+        "compute_dtype=bfloat16", f"batch_size={BATCH}", "augment=true",
+        "normalizer=scale_intensity", f"num_epochs={TRAIN_EPOCHS}", "lr=1e-3",
+        f"checkpoint_dir={unet_ckpt}"])
+    torch.cuda.synchronize()
+    out["cli_s"] = time.time() - t0
+    out["k1_launches"] = fg.gather_normalize.launches
+    out["cli_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    expect = TRAIN_EPOCHS * (-(-len(u_train) // BATCH) - (-len(u_val) // BATCH))
+    log(f"cli.train_unet3d: {out['cli_s']:.1f} s ({len(u_train)} train / {len(u_val)} val "
+        f"subjects streamed, {TRAIN_EPOCHS} epochs); K1 launches {out['k1_launches']} "
+        f"(expected {expect}); best val AUC {best_auc:.4f}; peak memory {out['cli_peak_gb']:.2f} GB")
+    check(out["k1_launches"] == expect,
+          f"U-Net training ran K1 {out['k1_launches']} times, expected {expect}")
+    with open(os.path.join(unet_ckpt, "unet_results.csv")) as f:
+        rows = list(csv.reader(f))
+    check(len(rows) == 1 + TRAIN_EPOCHS and all(len(r) == 19 for r in rows),
+          f"unet_results.csv is {len(rows)} rows of {len(rows[0])} columns")
+    il, vl = rows[0].index("tr_loss"), rows[0].index("vl_loss")
+    cli_losses = [(float(r[il]), float(r[vl])) for r in rows[1:]]
+    check(bool(np.isfinite(cli_losses).all()), f"non-finite losses {cli_losses}")
+    log(f"  unet_results.csv (epoch, tr_loss, vl_loss, vl_auc, lr): "
+        f"{[(r[1], r[il], r[vl], r[rows[0].index('vl_auc')], r[-1]) for r in rows[1:]]}")
+    out["best_val_auc"] = best_auc
+
+    # best_model restores; its fp32 logits on the card against the host CPU
+    weights, meta = ckpt.restore_state(os.path.join(unet_ckpt, "best_model"))
+    check(meta["metrics"]["val_auc"] == best_auc, f"best_model meta {meta['metrics']}")
+    m32 = UNet3DClassifier(compute_dtype=torch.float32)
+    m32.load_state_dict(weights)
+    m32.eval()
+    two = raw_host[:2]
+    with torch.no_grad():
+        card_logits = m32.to(dev)(scale_intensity(two.to(dev))).cpu().numpy()
+        host_logits = m32.cpu()(scale_intensity(two)).numpy()
+    d = float(np.abs(card_logits - host_logits).max())
+    out["best_model_card_vs_host"] = d
+    log(f"  best_model fp32 logits (2 volumes), card vs host CPU: max |d| {d:.3g} "
+        f"(card {card_logits.ravel().round(4).tolist()})")
+    check(np.allclose(card_logits, host_logits, rtol=2e-3, atol=2e-3),
+          f"card and host best_model logits differ by {d}")
+    del m32, weights
+
+    # the JAX package's learning recipe at its small size (test_learning.py)
+    t0 = time.time()
+    lp_csv, lp_mri = make_adni_dir(os.path.join(work, "unet_lp"), n_per_class=24,
+                                   classes=("AD", "CN"), shape=(16, 20, 16), seed=13,
+                                   extent_jitter=0.3, center_jitter=0.04, noise=0.25)
+    cfg = Config(label_file=lp_csv, mri_dir=lp_mri, task="ADCN", num_epochs=15, batch_size=4,
+                 lr=1e-3, checkpoint_dir=os.path.join(work, "unet_lp_ckpt"),
+                 compute_dtype="float32", loader_threads=2)
+    lp_auc, _ = train_unet_classifier(
+        cfg, model=UNet3DClassifier(base_ch=8, compute_dtype=torch.float32,
+                                    generator=torch.Generator().manual_seed(SEED)),
+        verbose=False, device=dev)
+    out["recipe_best_val_auc"], out["recipe_s"] = lp_auc, time.time() - t0
+    log(f"learning recipe (48 subjects 16x20x16, base 8, 15 epochs, batch 4, lr 1e-3, fp32): "
+        f"best val AUC {lp_auc:.4f} in {out['recipe_s']:.1f} s (bar 0.85)")
+    check(lp_auc >= 0.85, f"U-Net learning recipe: best val AUC {lp_auc} < 0.85")
+    return out
+
+
+def autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext_records,
+                      atlas_labels, roi_names, untrained_roi_csv):
+    """Phase 10: the UNet3D denoising autoencoder, then extraction from it."""
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.eval.features import extract_unet_features
+    from multimodal_ad_tpu_torch.models.unet3d import UNet3D
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import roi_pool as rp
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
+    from multimodal_ad_tpu_torch.train import autoencoder as ae_mod
+    from multimodal_ad_tpu_torch.train import loop
+    from multimodal_ad_tpu_torch.train.single_split import single_split
+
+    log(f"== 10. autoencoder: UNet3D 64/128/256/512, bf16 autocast, 91x109x91 (96x112x96 "
+        f"padded), batch {BATCH}; then extraction from its checkpoint")
+    out = {}
+    ae_train, ae_val, _ = single_split(records, 42)
+    first = ae_train[:BATCH]
+    x = scale_intensity(torch.from_numpy(np.stack([load_volume(r["MRI"]) for r in first])
+                                         [..., None]).to(dev))
+    batch = {"image": x, "mask": torch.ones(BATCH, device=dev)}
+    model = UNet3D(compute_dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(SEED + 31)).to(dev)
+    state = loop.create_train_state(model, lambda _: 1e-3, ae_mod.WEIGHT_DECAY,
+                                    grad_clip_norm=1.0, optimizer="adamw")
+    step, _ = ae_mod.make_ae_steps(0.2, torch.Generator(device=dev).manual_seed(SEED + 7))
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"], out["first_step_s"] = step_events(torch, lambda: step(state, batch), 10)
+    out["vols_per_s"] = BATCH / (out["step_ms"] / 1e3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"autoencoder step: first {out['first_step_s']:.2f} s (cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}), then median {out['step_ms']:.2f} ms of 10 after 2 "
+        f"of warm-up (CUDA events) -> {out['vols_per_s']:.2f} vols/s on {card}; peak memory "
+        f"{out['peak_gb']:.2f} GB")
+    log("profile of 2 autoencoder steps (device time by kernel):")
+    log(top_kernels(torch, lambda: [step(state, batch) for _ in range(2)]))
+    del state, model, batch, x
+
+    # the main path: train_unet_autoencoder, then extraction from its checkpoint
+    cfg = Config(label_file=train_csv, mri_dir=train_mri, task="ADCN",
+                 num_epochs=TRAIN_EPOCHS, batch_size=BATCH, lr=1e-3, compute_dtype="bfloat16",
+                 checkpoint_dir=os.path.join(work, "ae_ckpt"))
+    fg.gather_normalize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    best, path = ae_mod.train_unet_autoencoder(cfg, device=dev)
+    torch.cuda.synchronize()
+    out["train_s"], out["k1_launches"] = time.time() - t0, fg.gather_normalize.launches
+    out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["best_val_mse"] = best
+    expect = TRAIN_EPOCHS * (-(-len(ae_train) // BATCH) - (-len(ae_val) // BATCH))
+    log(f"train_unet_autoencoder: {out['train_s']:.1f} s ({TRAIN_EPOCHS} epochs streamed), "
+        f"best val MSE {best:.5f}, K1 launches {out['k1_launches']} (expected {expect}); "
+        f"peak memory {out['train_peak_gb']:.2f} GB")
+    check(np.isfinite(best) and os.path.isfile(os.path.join(path, "model.pt")),
+          f"autoencoder: best val MSE {best}, checkpoint {path}")
+    check(out["k1_launches"] == expect,
+          f"the autoencoder ran K1 {out['k1_launches']} times, expected {expect}")
+
+    model = ae_mod.load_autoencoder(path, cfg, device=dev)
+    fg.gather_normalize.launches = 0
+    rp.roi_pool.launches = 0
+    t0 = time.time()
+    feat_csv, roi_csv = extract_unet_features(ext_records, atlas_labels, roi_names,
+                                              os.path.join(work, "out_trained"), model=model,
+                                              batch_size=BATCH, device=dev)
+    out["extraction_s"] = time.time() - t0
+    out["extraction_k1"] = fg.gather_normalize.launches
+    out["extraction_k2"] = rp.roi_pool.launches
+    log(f"extraction from the trained autoencoder: {out['extraction_s']:.2f} s for "
+        f"{len(ext_records)} subjects; K1 launches {out['extraction_k1']}, K2 launches "
+        f"{out['extraction_k2']}")
+    check(out["extraction_k1"] > 0 and out["extraction_k2"] > 0,
+          "trained extraction did not launch K1 and K2")
+    with open(feat_csv) as f:
+        frows = list(csv.reader(f))
+    with open(roi_csv) as f:
+        rrows = list(csv.reader(f))
+    with open(untrained_roi_csv) as f:
+        urows = list(csv.reader(f))
+    check(len(frows) == 1 + len(ext_records) and all(len(r) == 1 + VOX for r in frows),
+          f"features.csv is {len(frows)} rows of {len(frows[0])} columns")
+    check(len(rrows) == 1 + len(ext_records)
+          and all(len(r) == 1 + N_ROIS * ROI_CH for r in rrows),
+          f"roi_features.csv is {len(rrows)} rows of {len(rrows[0])} columns")
+    check(rrows[0] == urows[0] and [r[0] for r in rrows] == [r[0] for r in urows],
+          "trained and untrained roi_features.csv differ in header or subjects")
+    trained = np.asarray([r[1:] for r in rrows[1:]], np.float64)
+    untrained = np.asarray([r[1:] for r in urows[1:]], np.float64)
+    vox = np.asarray([r[1:] for r in frows[1:]], np.float64)
+    check(bool(np.isfinite(trained).all() and np.isfinite(vox).all()), "non-finite features")
+    out["roi_max_abs_diff_vs_untrained"] = float(np.abs(trained - untrained).max())
+    log(f"  roi_features.csv {trained.shape}, finite; against the untrained network's "
+        f"(phase 7): max |d| {out['roi_max_abs_diff_vs_untrained']:.4g}")
+    check(out["roi_max_abs_diff_vs_untrained"] > 1e-3,
+          "ROI features of the trained autoencoder equal the untrained network's")
+    del model
+
+    # the JAX package's autoencoder recipe at its small size (test_autoencoder.py)
+    t0 = time.time()
+    lp_csv, lp_mri = make_adni_dir(os.path.join(work, "ae_lp"), n_per_class=6,
+                                   classes=("AD", "CN"), shape=(20, 24, 20), seed=0)
+    cfg = Config(label_file=lp_csv, mri_dir=lp_mri, task="ADCN", num_epochs=3, batch_size=8,
+                 lr=3e-3, checkpoint_dir=os.path.join(work, "ae_lp_ckpt"),
+                 compute_dtype="float32", loader_threads=2)
+    lp_best, _ = ae_mod.train_unet_autoencoder(
+        cfg, model=UNet3D(level_channels=(8, 16, 32), bottleneck_channel=64,
+                          generator=torch.Generator().manual_seed(SEED)),
+        verbose=False, device=dev)
+    out["recipe_best_val_mse"], out["recipe_s"] = lp_best, time.time() - t0
+    log(f"autoencoder recipe (12 subjects 20x24x20, UNet3D 8/16/32/64, 3 epochs, batch 8, "
+        f"lr 3e-3, fp32): best val MSE {lp_best:.5f} in {out['recipe_s']:.1f} s (bar 0.05)")
+    check(lp_best < 0.05, f"autoencoder recipe: best val MSE {lp_best} >= 0.05")
+    return out
 
 
 def main() -> int:
@@ -929,20 +1301,33 @@ def main() -> int:
     check(all(abs(a - b) <= 1e-3 + 1e-3 * abs(b) and c <= 1.0 and d <= 2 * lr_max
               and e >= 0.999 for a, b, c, d, e in fp32_rows),
           "card and host fp32 train steps differ beyond their bounds")
+
+    # ---- 9. U-Net classifier training ------------------------------------
+    unet = unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records)
+
+    # ---- 10. autoencoder -> trained extraction ---------------------------
+    ext_records = stratified_test_split(
+        ADNIManifest(label_csv, mri_dir, verbose=False).data_dict, 0.2, 42)[1]
+    ae = autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext_records,
+                           labels, roi_names, os.path.join(work, "out1", "roi_features.csv"))
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 9. result -----------------------------------------------------
+    # ---- 11. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     kernels = {"kernels": [{
         "name": "fused_gather_normalize",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": serve_launches + resident_launches + ext_k1 + train_launches,
+        "launches": (serve_launches + resident_launches + ext_k1 + train_launches
+                     + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]),
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
         "launches_training": train_launches,
+        "launches_unet_training": unet["k1_launches"],
+        "launches_autoencoder": ae["k1_launches"],
+        "launches_trained_extraction": ae["extraction_k1"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -963,7 +1348,9 @@ def main() -> int:
         "route": "cuda",
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": ext_k2,
+        "launches": ext_k2 + ae["extraction_k2"],
+        "launches_extraction": ext_k2,
+        "launches_trained_extraction": ae["extraction_k2"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -997,6 +1384,7 @@ def main() -> int:
                     "training_peak_gb": train_peak_step_gb,
                     "training_cli_peak_gb": train_peak_gb,
                     "training_test_avg": results["avg"],
+                    "unet_classifier": unet, "autoencoder": ae,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

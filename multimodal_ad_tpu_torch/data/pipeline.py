@@ -41,17 +41,22 @@ class VolumeBatcher:
     `subject` names only them). Normalization runs on the device. With
     `shuffle`, each epoch's order is ``np.random.default_rng((seed,
     epoch))``'s shuffle (epoch counts the iterations started), as in the
-    TPU package. Other modalities and host transforms (data/transforms.py)
-    are not ported."""
+    TPU package. With a `transform` (data/transforms.py), each batch also
+    holds 'plan': the host entry of one `AugmentPlan` a row, drawn for the
+    row's position in `records` and the epoch (a padding row repeats its
+    source's), which the device applies after normalizing. Other
+    modalities are not ported."""
 
     def __init__(self, records, batch_size: int = 8, num_threads: int = 8,
-                 loader=load_volume, shuffle: bool = False, seed: int = 0):
+                 loader=load_volume, shuffle: bool = False, seed: int = 0,
+                 transform=None):
         self.records = list(records)
         self.batch_size = batch_size
         self.num_threads = num_threads
         self.loader = loader
         self.shuffle = shuffle
         self.seed = seed
+        self.transform = transform
         self._epoch = 0
 
     def __len__(self):
@@ -82,22 +87,26 @@ class VolumeBatcher:
         return chunks
 
     def __iter__(self):
+        epoch = self._epoch
         chunks = self._chunks()
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             def submit(chunk):
                 return [pool.submit(self._decode, self.records[i]) for i in chunk]
 
             pending = submit(chunks[0][0]) if chunks else None
-            for ci, (_, n_real) in enumerate(chunks):
+            for ci, (chunk, n_real) in enumerate(chunks):
                 futures = pending  # decode the next batch while this one is used
                 pending = submit(chunks[ci + 1][0]) if ci + 1 < len(chunks) else None
                 vols, labels, subjects = zip(*(f.result() for f in futures))
                 mask = np.ones((len(vols),), np.float32)
                 mask[n_real:] = 0.0
-                yield {"image": np.stack(vols).astype(np.float32),
-                       "label": np.asarray(labels, np.int32),
-                       "mask": mask,
-                       "subject": list(subjects[:n_real])}
+                batch = {"image": np.stack(vols).astype(np.float32),
+                         "label": np.asarray(labels, np.int32),
+                         "mask": mask,
+                         "subject": list(subjects[:n_real])}
+                if self.transform is not None:
+                    batch["plan"] = [self.transform.plan(int(i), epoch) for i in chunk]
+                yield batch
 
 
 def device_prefetch(iterator, device, depth: int = 2):

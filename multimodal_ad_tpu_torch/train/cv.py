@@ -18,9 +18,9 @@ Input paths:
   augmented there (`DeviceEpochIterator`);
 - otherwise `VolumeBatcher` decodes on host threads, `device_prefetch`
   uploads, and the batch is normalized on the device (K1 for
-  scale_intensity). Host augmentation (the TPU package's
-  data/transforms.py) is not ported: ``augment=True`` needs
-  ``hbm_cache=True``.
+  scale_intensity); with ``augment=True`` the training batcher plans each
+  row's flip, rotation and zoom on the host (data/transforms.py, the TPU
+  package's draws) and the device applies them after normalizing.
 
 Losses and probabilities stay on the device until an epoch ends: one host
 fetch per epoch, so queued steps run back to back. Runs on the card unless
@@ -42,6 +42,7 @@ from ..data.adni import ADNIManifest
 from ..data.device_cache import DeviceEpochIterator, build_device_dataset
 from ..data.pipeline import VolumeBatcher, device_prefetch, load_volume
 from ..data.splits import stratified_kfold, stratified_test_split
+from ..data.transforms import apply_plans, make_transforms
 from ..models.resnet3d import generate_model
 from ..ops.normalize import NORMALIZERS
 from ..utils.logging import CVLogger
@@ -74,10 +75,13 @@ def _make_model(cfg: Config, model_factory, seed: int):
 
 
 def _device_batches(loader, device, normalizer: str, depth: int):
-    """Streamed host batches, uploaded ahead and normalized on the device."""
+    """Streamed host batches, uploaded ahead and normalized on the device;
+    a batch that carries augmentation plans is augmented there next."""
     normalize = NORMALIZERS[normalizer]
     for batch in device_prefetch(iter(loader), device, depth=depth):
         batch["image"] = normalize(batch["image"])
+        if "plan" in batch:
+            batch["image"] = apply_plans(batch["image"], batch.pop("plan"))
         yield batch
 
 
@@ -129,11 +133,6 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
     ResNet3D, initial weights seeded with seed + fold); `records` replaces
     the manifest; `loader` replaces the NIfTI volume loader."""
     dev = resolve_device(device)
-    if cfg.augment and not cfg.hbm_cache:
-        raise NotImplementedError(
-            "augment=True needs hbm_cache=True: the port augments on the "
-            "device (ops/augment.py); host augmentation (data/transforms.py) "
-            "is not ported")
     np.random.seed(cfg.seed)
     if records is None:
         records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task,
@@ -155,6 +154,7 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
         subjects = [r["Subject"] for r in tr_val]
 
     logger = CVLogger(cfg.checkpoint_dir)
+    tf_train, tf_eval = make_transforms(cfg.augment, seed=cfg.seed)
     schedule = make_epoch_schedule(cfg.lr, cfg.num_epochs, cfg.warmup_frac,
                                    cfg.min_lr_factor)
     batcher_kw = dict(batch_size=cfg.batch_size, num_threads=cfg.loader_threads,
@@ -173,9 +173,9 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
                 device_ds, [subj_to_idx[r["Subject"]] for r in val_data],
                 cfg.batch_size, subjects=subjects, normalizer=cfg.normalizer)
         else:
-            loader_tr = VolumeBatcher(train_data, shuffle=True,
-                                      seed=cfg.seed + fold, **batcher_kw)
-            loader_vl = VolumeBatcher(val_data, **batcher_kw)
+            loader_tr = VolumeBatcher(train_data, shuffle=True, seed=cfg.seed + fold,
+                                      transform=tf_train, **batcher_kw)
+            loader_vl = VolumeBatcher(val_data, transform=tf_eval, **batcher_kw)
 
         model = _make_model(cfg, model_factory, cfg.seed + fold)
         if cfg.pretrain_path and os.path.isfile(cfg.pretrain_path):

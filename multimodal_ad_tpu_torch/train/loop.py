@@ -9,11 +9,14 @@ Optimization as the TPU package runs it:
   Adam (`kind="adam"`: torch Adam's weight_decay); `kind="adamw"` decays
   the weights decoupled from the moments (torch AdamW);
 - warmup 0.1 -> 1.0 over clamp(int(0.1 * epochs), 1, 10) counts, then a
-  cosine to lr * 1e-4 (`make_epoch_schedule`). The TPU package hands this
-  schedule to optax, which evaluates it at the optimizer's *update count*,
-  not at the epoch its docstring names; the port does the same, so both
-  apply one rate at every update. What the CV log records is
-  ``schedule(epoch)``, as there.
+  cosine to lr * 1e-4 (`make_epoch_schedule`); the single-split trainers
+  use a plain cosine to 0 over max(1, epochs) counts
+  (`cosine_decay_schedule`). The TPU package hands these schedules to
+  optax, which evaluates them at the optimizer's *update count*, not at
+  the epoch their docstrings name; the port does the same, so both apply
+  one rate at every update (with the plain cosine the rate is 0 from
+  update `epochs` on). What the logs record is ``schedule(epoch)``, as
+  there.
 
 A step runs the model's forward under its own autocast (bf16 over fp32
 parameters by default) and keeps the loss and the probabilities on the
@@ -49,11 +52,27 @@ def make_epoch_schedule(base_lr: float, num_epochs: int, warmup_frac: float = 0.
             c = f32(min(max(count, 0), warmup))
             frac = f32(1) - c / f32(warmup)
             return float((init - end) * frac + end)
-        c = f32(min(count - warmup, cosine))
-        decay = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(cosine)))
-        return float(end * ((f32(1) - alpha) * decay + alpha))
+        return float(end * ((f32(1) - alpha) * _cosine(count - warmup, cosine) + alpha))
 
     return schedule
+
+
+def _cosine(count: int, steps: int) -> np.float32:
+    """optax's cosine factor 0.5 * (1 + cos(pi * min(count, steps) / steps))
+    in float32."""
+    f32 = np.float32
+    c = f32(min(count, steps))
+    return f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(steps)))
+
+
+def cosine_decay_schedule(base_lr: float, decay_steps: int):
+    """optax.cosine_decay_schedule(base_lr, decay_steps) (alpha 0) in
+    float32: the rate is 0 from count `decay_steps` on. Returns
+    ``schedule(count) -> float``."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+    init = np.float32(base_lr)
+    return lambda count: float(init * _cosine(int(count), decay_steps))
 
 
 def make_optimizer(params, schedule, weight_decay: float = 1e-4,

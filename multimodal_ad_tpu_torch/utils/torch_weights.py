@@ -14,12 +14,15 @@
 - `load_medicalnet_weights` merges a MedicalNet checkpoint into a model by
   key intersection (the reference's partial-transfer semantics), with a
   report of loaded / skipped / mismatched names.
-- `unet3d_state_dict_from_flax` turns the TPU package's UNet3D variables
-  into this package's UNet3D state_dict (`unet3d_name_map` pairs the
-  names). A flax ConvTranspose kernel (kx, ky, kz, in, out) becomes
-  (in, out, kx, ky, kz) *flipped in all three spatial axes*: flax's
-  ConvTranspose (transpose_kernel=False) equals
-  torch.nn.functional.conv_transpose3d only with the kernel flipped.
+- `unet3d_state_dict_from_flax` and `unet3d_classifier_state_dict_from_flax`
+  turn the TPU package's UNet3D and UNet3DClassifier variables into this
+  package's state_dicts (`unet3d_name_map`, `unet3d_classifier_name_map`
+  pair the names). A flax ConvTranspose kernel (kx, ky, kz, in, out)
+  becomes (in, out, kx, ky, kz) *flipped in all three spatial axes*:
+  flax's ConvTranspose (transpose_kernel=False) equals
+  torch.nn.functional.conv_transpose3d only with the kernel flipped. The
+  classifier's Dense kernel is transposed; its up steps concatenate
+  [skip, x] in both packages, so their convs map as they are.
 """
 
 from __future__ import annotations
@@ -207,36 +210,62 @@ def _flip_convtranspose(w):
     return np.transpose(w, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
 
 
+def _upconv_rows(tname: str, fpath: tuple) -> list:
+    return [(f"{tname}.weight", "params", fpath + ("kernel",), _flip_convtranspose),
+            (f"{tname}.bias", "params", fpath + ("bias",), None)]
+
+
+def _double_conv_rows(tname: str, fname: str) -> list:
+    """conv1/bn1, conv2/bn2 of a double-conv block <-> Conv_0/BatchNorm_0,
+    Conv_1/BatchNorm_1 of the flax module `fname`."""
+    rows = []
+    for i in (0, 1):
+        conv, bn = (fname, f"Conv_{i}"), (fname, f"BatchNorm_{i}")
+        rows += [(f"{tname}.conv{i + 1}.weight", "params", conv + ("kernel",), _to_oidhw),
+                 (f"{tname}.conv{i + 1}.bias", "params", conv + ("bias",), None),
+                 (f"{tname}.bn{i + 1}.weight", "params", bn + ("scale",), None),
+                 (f"{tname}.bn{i + 1}.bias", "params", bn + ("bias",), None),
+                 (f"{tname}.bn{i + 1}.running_mean", "batch_stats", bn + ("mean",), None),
+                 (f"{tname}.bn{i + 1}.running_var", "batch_stats", bn + ("var",), None)]
+    return rows
+
+
 def unet3d_name_map() -> list:
     """Ordered (torch_name, flax_collection, flax_path, transform) rows of
     the UNet3D; `transform` maps the flax array to the torch layout."""
     rows = []
     for tname, fname in _UNET_BLOCKS:
-        up = not tname.startswith(("enc", "bottleneck"))
-        if up:
-            rows += [(f"{tname}.upconv.weight", "params",
-                      (fname, "ConvTranspose_0", "kernel"), _flip_convtranspose),
-                     (f"{tname}.upconv.bias", "params",
-                      (fname, "ConvTranspose_0", "bias"), None)]
-        for i in (0, 1):
-            conv, bn = (fname, f"Conv_{i}"), (fname, f"BatchNorm_{i}")
-            rows += [(f"{tname}.conv{i + 1}.weight", "params", conv + ("kernel",), _to_oidhw),
-                     (f"{tname}.conv{i + 1}.bias", "params", conv + ("bias",), None),
-                     (f"{tname}.bn{i + 1}.weight", "params", bn + ("scale",), None),
-                     (f"{tname}.bn{i + 1}.bias", "params", bn + ("bias",), None),
-                     (f"{tname}.bn{i + 1}.running_mean", "batch_stats", bn + ("mean",), None),
-                     (f"{tname}.bn{i + 1}.running_var", "batch_stats", bn + ("var",), None)]
+        if not tname.startswith(("enc", "bottleneck")):
+            rows += _upconv_rows(f"{tname}.upconv", (fname, "ConvTranspose_0"))
+        rows += _double_conv_rows(tname, fname)
     rows += [("head_block.head.weight", "params", ("head_block", "Conv_2", "kernel"), _to_oidhw),
              ("head_block.head.bias", "params", ("head_block", "Conv_2", "bias"), None)]
     return rows
 
 
-def unet3d_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
-    """TPU-package UNet3D variables ({'params', 'batch_stats'} as nested
-    dicts of arrays) -> this package's UNet3D state_dict, loadable with
+def unet3d_classifier_name_map() -> list:
+    """Ordered (torch_name, flax_collection, flax_path, transform) rows of
+    the UNet3DClassifier: enc1-4 and bottleneck are the flax blocks
+    UNetClassifierConvBlock_0-4; up4..up1 the ConvTranspose_0-3 and blocks
+    5-8 their `up` steps create in turn; fc is Dense_0."""
+    encoders = ("enc1", "enc2", "enc3", "enc4", "bottleneck")
+    rows = []
+    for i, tname in enumerate(encoders):
+        rows += _double_conv_rows(tname, f"UNetClassifierConvBlock_{i}")
+    for i, tname in enumerate(("up4", "up3", "up2", "up1")):
+        rows += _upconv_rows(f"{tname}.upconv", (f"ConvTranspose_{i}",))
+        rows += _double_conv_rows(f"{tname}.block", f"UNetClassifierConvBlock_{5 + i}")
+    rows += [("fc.weight", "params", ("Dense_0", "kernel"), np.transpose),
+             ("fc.bias", "params", ("Dense_0", "bias"), None)]
+    return rows
+
+
+def _state_dict_from_rows(variables, rows) -> "OrderedDict[str, torch.Tensor]":
+    """Convert `variables` ({'params', 'batch_stats'} as nested dicts of
+    arrays) by a name map's rows into a state_dict loadable with
     strict=True (each BatchNorm also gets num_batches_tracked = 0)."""
     out = OrderedDict()
-    for tname, coll, fpath, tf in unet3d_name_map():
+    for tname, coll, fpath, tf in rows:
         w = np.asarray(_get_path(variables[coll], fpath), np.float32)
         if tf is not None:
             w = tf(w)
@@ -245,3 +274,14 @@ def unet3d_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
             out[tname[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return out
+
+
+def unet3d_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package UNet3D variables -> this package's UNet3D state_dict."""
+    return _state_dict_from_rows(variables, unet3d_name_map())
+
+
+def unet3d_classifier_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package UNet3DClassifier variables -> this package's
+    UNet3DClassifier state_dict."""
+    return _state_dict_from_rows(variables, unet3d_classifier_name_map())

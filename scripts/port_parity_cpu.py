@@ -5,7 +5,7 @@
 Runs the comparisons of tests/test_torch_port_*.py on the same seeded
 inputs and prints the largest absolute difference of each, one line per
 comparison, so PERF.md can quote measured errors rather than the tests'
-bounds. Needs both jax and torch; runs in about a minute.
+bounds. Needs both jax and torch; runs in a few minutes.
 """
 
 from __future__ import annotations
@@ -195,6 +195,7 @@ def main():
                    np.asarray([r[1:] for r in rows_b[1:]], float))
 
     training_parity()
+    unet_training_parity()
 
 
 def training_parity():
@@ -281,6 +282,146 @@ def training_parity():
             assert a["subject"] == b["subject"]
             worst = max(worst, float(np.abs(b["image"].numpy() - np.asarray(a["image"])).max()))
     print(f"{'DeviceEpochIterator images, 2 epochs, both normalizers':58s} max|d| {worst:.3e}")
+
+
+def unet_training_parity():
+    """The U-Net training slice: host-planned augmentation and its batcher,
+    the classifier forward, UNet3D train-mode BN statistics, three AdamW
+    steps of the classifier, one autoencoder step on JAX's mask, the
+    cosine schedule; each against the JAX package."""
+    import optax
+
+    from multimodal_ad_tpu.data import pipeline as jpipe
+    from multimodal_ad_tpu.data import transforms as jtf
+    from multimodal_ad_tpu.models.unet3d import UNet3DClassifier as JaxClassifier
+    from multimodal_ad_tpu.train import autoencoder as jae
+    from multimodal_ad_tpu.train import loop as jloop
+    from multimodal_ad_tpu_torch.data import pipeline as tpipe
+    from multimodal_ad_tpu_torch.data import transforms as ttf
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest as TManifest
+    from multimodal_ad_tpu_torch.models.unet3d import UNet3DClassifier
+    from multimodal_ad_tpu_torch.train import autoencoder as tae
+    from multimodal_ad_tpu_torch.train import loop as tloop
+    from multimodal_ad_tpu_torch.train.cv import _device_batches
+    from multimodal_ad_tpu_torch.utils.torch_weights import (
+        unet3d_classifier_state_dict_from_flax)
+
+    np_ = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    jt, tt = jtf.VolumeTransform(augment=True, seed=7), ttf.VolumeTransform(augment=True, seed=7)
+    worst, exact = 0.0, True
+    for idx in range(60):
+        vol = (np.random.default_rng(idx).normal(size=(13, 17, 11)) * 40 + 100).astype(np.float32)
+        ref = jt(vol, sample_idx=idx, epoch=idx % 3)
+        plan = [tt.plan(idx, idx % 3)]
+        ours = ttf.apply_plans(tnorm.scale_intensity(torch.from_numpy(vol)[None, ..., None]), plan)
+        worst = max(worst, float(np.abs(ours[0].numpy() - ref).max()))
+        host = ttf.apply_plans(torch.from_numpy(host_scale(vol))[None, ..., None], plan)
+        exact &= bool(np.array_equal(host[0].numpy(), ref))
+    report("host augmentation, 60 volumes: K1 plain + apply_plans", [worst], [0.0])
+    print(f"{'  from the host normalize: bit-equal':58s} {exact}")
+
+    with tempfile.TemporaryDirectory() as root:
+        csv_path, mri = make_adni_dir(root, n_per_class=6, shape=(20, 24, 20), seed=0)
+        recs = TManifest(csv_path, mri, verbose=False).data_dict
+        jb = jpipe.VolumeBatcher(recs, jt, batch_size=5, shuffle=True, seed=3, num_threads=2)
+        tb = tpipe.VolumeBatcher(recs, batch_size=5, shuffle=True, seed=3, num_threads=2,
+                                 transform=tt)
+        worst = 0.0
+        for _ in range(2):
+            for a, b in zip(jb, _device_batches(tb, "cpu", "scale_intensity", 2)):
+                assert a["subject"] == b["subject"]
+                worst = max(worst, float(np.abs(b["image"].numpy() - a["image"]).max()))
+        report("VolumeBatcher + transform, 12 subjects, 2 epochs", [worst], [0.0])
+
+    shape = (19, 23, 27)
+    jm = JaxClassifier(num_classes=2, base_ch=4, dtype=jnp.float32)
+    v = random_flax_variables(jm, (*shape, 1), seed=0)
+    x = np.random.default_rng(1).normal(size=(2, *shape, 1)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, train=False))(v, jnp.asarray(x)))
+    tm = UNet3DClassifier(base_ch=4, compute_dtype=torch.float32).eval()
+    tm.load_state_dict(unet3d_classifier_state_dict_from_flax(np_(v)))
+    with torch.no_grad():
+        report("UNet3DClassifier base 4, 19x23x27, eval logits", tm(torch.from_numpy(x)).numpy(),
+               ref)
+
+    narrow = dict(level_channels=(8, 16, 32), bottleneck_channel=64)
+    shape = (12, 14, 10)
+    ju = JaxUNet3D(dtype=jnp.float32, **narrow)
+    v = random_flax_variables(ju, (*shape, 1), seed=3)
+    x = np.random.default_rng(2).normal(size=(2, *shape, 1)).astype(np.float32) * 2 + 1
+    _, upd = jax.jit(lambda v, x: ju.apply(v, x, train=True, mutable=["batch_stats"]))(
+        v, jnp.asarray(x))
+    tu = UNet3D(**narrow).train()
+    tu.load_state_dict(unet3d_state_dict_from_flax(np_(v)))
+    tu(torch.from_numpy(x))
+    ref = unet3d_state_dict_from_flax(np_({"params": v["params"],
+                                           "batch_stats": upd["batch_stats"]}))
+    report("UNet3D train-mode BN running statistics (28 buffers)",
+           np.concatenate([tu.state_dict()[k].numpy() for k in ref if ".running_" in k]),
+           np.concatenate([ref[k].numpy() for k in ref if ".running_" in k]))
+
+    rel = max(abs(tloop.cosine_decay_schedule(1e-3, n)(k)
+                  - float(optax.cosine_decay_schedule(1e-3, n)(jnp.int32(k)))) / 1e-3
+              for n in (1, 2, 15) for k in range(31))
+    print(f"{'cosine_decay_schedule, 1/2/15 steps, updates 0-30: max |d|/lr':58s} {rel:.3e}")
+
+    # three AdamW steps of the classifier (16^3, B = 4 with a padded row)
+    shape = (16, 16, 16)
+    jm = JaxClassifier(num_classes=2, base_ch=4, dtype=jnp.float32)
+    v = random_flax_variables(jm, (*shape, 1), seed=4)
+    tx = jloop.make_optimizer(optax.cosine_decay_schedule(1e-3, 4), 1e-4, 0.0, "adamw")
+    js = jloop.TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                          opt_state=tx.init(v["params"]), epoch=jnp.zeros((), jnp.int32),
+                          tx=tx, apply_fn=jm.apply)
+    tm = UNet3DClassifier(base_ch=4, compute_dtype=torch.float32)
+    tm.load_state_dict(unet3d_classifier_state_dict_from_flax(np_(v)))
+    ts = tloop.create_train_state(tm, tloop.cosine_decay_schedule(1e-3, 4), 1e-4, 0.0, "adamw")
+    step = jloop.make_train_step(2)
+    brng = np.random.default_rng(5)
+    for i in range(3):
+        b = {"image": brng.random((4, *shape, 1)).astype(np.float32),
+             "label": np.array([0, 1, 1, 0], np.int32),
+             "mask": np.array([1, 1, 1, 0], np.float32)}
+        js, jl, _ = step(js, {k: jnp.asarray(x) for k, x in b.items()}, jnp.ones(2),
+                         jax.random.PRNGKey(0))
+        tl, _ = tloop.train_step(ts, {k: torch.from_numpy(x) for k, x in b.items()},
+                                 torch.ones(2))
+        ref = unet3d_classifier_state_dict_from_flax(
+            np_({"params": js.params, "batch_stats": js.batch_stats}))
+        d = torch.cat([(tm.state_dict()[k] - x).abs().flatten() for k, x in ref.items()
+                       if ".running_" not in k and "num_batches" not in k
+                       and not (k.endswith(".bias") and ".conv" in k)])
+        print(f"{f'classifier AdamW step {i + 1}: loss rel, params max, share <= 1e-5':58s} "
+              f"{abs(float(tl) / float(jl) - 1):.3e}, {float(d.max()):.3e}, "
+              f"{float((d <= 1e-5).float().mean()):.5f}")
+
+    # one autoencoder step on the JAX package's own keep mask
+    shape = (12, 12, 12)
+    ju = JaxUNet3D(dtype=jnp.float32, **narrow)
+    v = random_flax_variables(ju, (*shape, 1), seed=9)
+    tx = optax.chain(optax.clip_by_global_norm(1.0),
+                     optax.adamw(optax.cosine_decay_schedule(1e-3, 2)))
+    js = jloop.TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                          opt_state=tx.init(v["params"]), epoch=jnp.zeros((), jnp.int32),
+                          tx=tx, apply_fn=ju.apply)
+    b = {"image": np.random.default_rng(6).random((4, *shape, 1)).astype(np.float32),
+         "mask": np.array([1, 1, 1, 0], np.float32)}
+    key = jax.random.PRNGKey(7)
+    keep = np.asarray(jax.random.bernoulli(jax.random.fold_in(key, 0), 0.8, b["image"].shape))
+    js, jl = jae.make_ae_steps(ju, 0.2)[0](js, {k: jnp.asarray(x) for k, x in b.items()}, key)
+    tu = UNet3D(**narrow)
+    tu.load_state_dict(unet3d_state_dict_from_flax(np_(v)))
+    ts = tloop.create_train_state(tu, tloop.cosine_decay_schedule(1e-3, 2), tae.WEIGHT_DECAY,
+                                  1.0, "adamw")
+    tl = tae.make_ae_steps(0.2)[0](ts, {k: torch.from_numpy(x) for k, x in b.items()},
+                                   keep=torch.from_numpy(keep.copy()))
+    ref = unet3d_state_dict_from_flax(np_({"params": js.params, "batch_stats": js.batch_stats}))
+    d = torch.cat([(tu.state_dict()[k] - x).abs().flatten() for k, x in ref.items()
+                   if ".running_" not in k and "num_batches" not in k
+                   and not (k.endswith(".bias") and ".conv" in k)])
+    print(f"{'autoencoder step on JAX mask: loss rel, params max, share <= 1e-5':58s} "
+          f"{abs(float(tl) / float(jl) - 1):.3e}, {float(d.max()):.3e}, "
+          f"{float((d <= 1e-5).float().mean()):.5f}")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@
 - checkpoints: a TrainState saved and restored resumes bit for bit;
   `latest_epoch_checkpoint`;
 - a 2-fold, 2-epoch `train_cv` at 16x20x16 through `cli.train_resnet3d
-  --device cpu` (resident with augmentation and precise-BN, and
-  streaming): the 19-column cv_results.csv, best/final checkpoints that
+  --device cpu` (resident with augmentation and precise-BN, streaming,
+  and streaming with host-planned augmentation): the 19-column
+  cv_results.csv, best/final checkpoints that
   `EnsemblePredictor` loads, finite test metrics, `cli.evaluate`, resume;
 - the flagship learning proof (slow, as in tests/test_learning.py).
 """
@@ -318,9 +319,26 @@ def test_resume_continues_from_the_last_epoch(adni, resident_run, tmp_path):
     assert [(r[0], r[1]) for r in rows[1:]] == [("1", "3"), ("2", "3")]
 
 
-def test_host_augmentation_is_not_ported(adni, tmp_path):
-    with pytest.raises(NotImplementedError, match="hbm_cache=True"):
-        _train_cli(adni, tmp_path, "augment=true")
+def test_host_augmentation_is_not_ported(adni, tmp_path, monkeypatch):
+    """Streaming with augment=true (no HBM cache): the training batchers
+    plan the TPU package's host augmentation and the device applies it;
+    the validation batchers never augment."""
+    from multimodal_ad_tpu_torch.data import transforms
+    from multimodal_ad_tpu_torch.train import cv
+
+    applied = []
+
+    def apply_plans(images, plans):
+        applied.append(sum(p != transforms.AugmentPlan() for p in plans))
+        return transforms.apply_plans(images, plans)
+
+    monkeypatch.setattr(cv, "apply_plans", apply_plans)
+    out = tmp_path / "ckpt"
+    _check_run(out, _train_cli(adni, out, "augment=true"), resident=False)
+    # 9 train/validation subjects: per fold and epoch 4 + 5 of them, 3
+    # batches of 4 in all
+    assert len(applied) == 2 * 2 * 3
+    assert sum(applied) > 0
 
 
 def test_class_weight_vector():

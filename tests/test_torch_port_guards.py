@@ -2,7 +2,8 @@
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
 kernels K1 and K2 agree with their plain versions on a card (those tests
 carry the `cuda` marker and skip where there is none), as do three fp32
-train steps and the training epoch iterator. This file imports no JAX, so
+train steps of the ResNet and of the U-Net classifier, the training epoch
+iterator and the host-planned augmentation. This file imports no JAX, so
 it also runs on the card's machine."""
 
 import os
@@ -112,6 +113,45 @@ def test_training_runs_without_sklearn_pandas_matplotlib_or_tensorboard(tmp_path
     assert os.path.isfile(tmp_path / "ckpt" / "cv_results.csv")
 
 
+def test_unet_training_runs_without_sklearn_pandas_matplotlib_or_tensorboard(tmp_path):
+    """The U-Net classifier CLI (host-planned augmentation) and the
+    autoencoder -> trained extraction path run end to end on the CPU with
+    JAX, sklearn, pandas, matplotlib and tensorboard blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'multimodal_ad_tpu', 'sklearn',"
+        " 'pandas', 'matplotlib', 'tensorboard'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from multimodal_ad_tpu_torch.cli.train_unet3d import main\n"
+        "from multimodal_ad_tpu_torch.core.config import Config\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir, make_atlas\n"
+        "from multimodal_ad_tpu_torch.eval.features import extract_unet_features\n"
+        "from multimodal_ad_tpu_torch.models.unet3d import UNet3D\n"
+        "from multimodal_ad_tpu_torch.train.autoencoder import (load_autoencoder,"
+        " train_unet_autoencoder)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "csv_path, mri = make_adni_dir(root, n_per_class=5, shape=(16, 16, 16))\n"
+        "args = ['label_file=' + csv_path, 'mri_dir=' + mri, 'num_epochs=1',"
+        " 'batch_size=4', 'compute_dtype=float32', 'loader_threads=2']\n"
+        "main(['--device', 'cpu', 'augment=true', 'checkpoint_dir=' + root + '/u'] + args)\n"
+        "cfg = Config(label_file=csv_path, mri_dir=mri, num_epochs=1, batch_size=4,"
+        " compute_dtype='float32', loader_threads=2, checkpoint_dir=root + '/ae')\n"
+        "narrow = dict(level_channels=(4, 8, 16), bottleneck_channel=32)\n"
+        "_, path = train_unet_autoencoder(cfg, model=UNet3D(**narrow), device='cpu')\n"
+        "model = load_autoencoder(path, cfg, model=UNet3D(**narrow), device='cpu')\n"
+        "recs = [{'MRI': mri + '/AD_000.nii', 'label': 1, 'Subject': 'AD_000'}]\n"
+        "extract_unet_features(recs, make_atlas((16, 16, 16), 3), ['A', 'B', 'C'],"
+        " root + '/out', model=model, device='cpu')\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert os.path.isfile(tmp_path / "u" / "unet_results.csv")
+    assert os.path.isfile(tmp_path / "out" / "roi_features.csv")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -169,6 +209,27 @@ def test_default_device_raises_without_a_card(no_cuda, tmp_path):
         test_models(Config(), [])
     assert not os.path.exists(tmp_path / "ckpt")  # nothing ran on the host
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unet_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from multimodal_ad_tpu_torch.cli.train_unet3d import main
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.train.autoencoder import (load_autoencoder,
+                                                           train_unet_autoencoder)
+    from multimodal_ad_tpu_torch.train.single_split import train_unet_classifier
+
+    cfg = Config(label_file=str(tmp_path / "labels.csv"), mri_dir=str(tmp_path),
+                 checkpoint_dir=str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([f"label_file={cfg.label_file}", f"mri_dir={tmp_path}",
+              f"checkpoint_dir={cfg.checkpoint_dir}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_unet_classifier(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_unet_autoencoder(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_autoencoder(str(tmp_path / "ckpt"), cfg)
+    assert not os.path.exists(tmp_path / "ckpt")  # nothing ran on the host
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -467,3 +528,65 @@ def test_epoch_iterator_on_the_card_launches_k1(cuda, augment):
         assert torch.equal(b["mask"].cpu(), a["mask"])
         assert torch.equal(b["label"].cpu(), a["label"])
         assert b["subject"] == a["subject"]
+
+
+@pytest.mark.cuda
+def test_augmentation_on_the_card_equals_the_host(cuda):
+    """apply_plans on the card and on the host CPU, for the same plans
+    (flips, rotations, zooms and identities over 12 rows): bit-equal (the
+    weights are planned on the host; every device operation rounds once,
+    in the host's order)."""
+    from multimodal_ad_tpu_torch.data.transforms import VolumeTransform, apply_plans
+
+    tf = VolumeTransform(augment=True, seed=7)
+    plans = [tf.plan(i, 0) for i in range(12)]
+    assert {(p.flip, p.angle is not None, p.zoom is not None) for p in plans} >= {
+        (False, False, False), (True, True, True), (False, True, False)}
+    x = torch.rand((12, 23, 27, 21, 1), generator=torch.Generator().manual_seed(0))
+    host = apply_plans(x, plans)
+    card = apply_plans(x.to(cuda), plans)
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.cuda
+def test_unet_classifier_steps_on_the_card_match_the_host(cuda):
+    """Three fp32 AdamW steps (no clip, the per-update cosine, TF32 off) of
+    a base-4 UNet3DClassifier at 24^3, B = 4 with a padded row, the card
+    starting each step from the host's state: losses and BN statistics
+    within 1e-3, parameters within 2 lr (Adam moves a parameter by about lr
+    whatever its gradient's size, so where a gradient is rounding noise,
+    as a conv bias before a BatchNorm's is, the two step apart)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models.unet3d import UNet3DClassifier
+    from multimodal_ad_tpu_torch.train import loop
+
+    resolve_device("cuda")
+
+    def state(device):
+        m = UNet3DClassifier(base_ch=4, compute_dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(0)).to(device)
+        return loop.create_train_state(m, loop.cosine_decay_schedule(1e-3, 4), 1e-4,
+                                       grad_clip_norm=0.0, optimizer="adamw")
+
+    host, card = state(torch.device("cpu")), state(cuda)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        card.model.load_state_dict(host.model.state_dict())
+        if host.step:
+            card.optimizer.load_state_dict(host.optimizer.state_dict())
+        card.step = host.step
+        batch = {"image": torch.rand((4, 24, 24, 24, 1), generator=g),
+                 "label": torch.tensor([0, 1, 1, 0]), "mask": torch.tensor([1.0, 1, 1, 0])}
+        ones = torch.ones(2)
+        l_host = float(loop.train_step(host, batch, ones)[0])
+        l_card = float(loop.train_step(card, {k: v.to(cuda) for k, v in batch.items()},
+                                       ones.to(cuda))[0])
+        assert l_card == pytest.approx(l_host, rel=1e-3, abs=1e-3)
+        h = host.model.state_dict()
+        c = {k: v.cpu() for k, v in card.model.state_dict().items()}
+        for k, v in h.items():
+            if ".running_" in k:
+                torch.testing.assert_close(c[k], v, rtol=1e-3, atol=1e-3, msg=k)
+            elif v.is_floating_point():
+                assert float((c[k] - v).abs().max()) <= 2e-3, k

@@ -7,8 +7,8 @@ NVIDIA GPU.
 Phases (any failure ends the run with a non-zero exit, nothing is caught):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build K1 (csrc/fused_gather.cu) and K2 (csrc/roi_pool.cu) with nvcc
-   for sm_90a, in parallel, timed;
+2. build K1 (csrc/fused_gather.cu), K2 (csrc/roi_pool.cu) and K3
+   (csrc/int8_conv.cu) with nvcc for sm_90a, in parallel, timed;
 3. K1 against its plain PyTorch version on the card: 32 full-size
    91x109x91 volumes in uint8, int16 (with negatives) and float32,
    repeated indices and one constant volume, f32 and bf16 output, int32
@@ -77,7 +77,26 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    K2 launched, CSV shapes, finite values, ROI features that differ from
    phase 7's untrained network's; the JAX package's small recipe (best
    validation MSE < 0.05);
-11. one JSON line {"kernels": [...]} and, last, the device line.
+11. int8 serving: K3 (csrc/int8_conv.cu) against its plain version
+   (float64 convolution + the plain epilogues), bit-equal in all three
+   epilogues at the ten distinct block-conv shapes of the flagship at
+   B = 8, at a depth-50 Bottleneck set at B = 2 and at odd sizes; its
+   time (as K1's) beside its bound, `torch._int_mm` on a pre-built im2col
+   matrix of the same GEMM (int32-equal to K3), the bf16 cuDNN
+   convolution of the same shape and the plain version; then phase 4's
+   five folds through `EnsemblePredictor.quantize_int8` -> `predict_proba`
+   (K3 launched 19 x 5 times a batch), calibration seconds, int8 against
+   bf16 (max |dprob|, argmax agreement), the int8 ensemble on the card
+   against the same export and scales on the host CPU (2 volumes;
+   probabilities within 1e-2, and from one stem output the quant points
+   bit-equal), resident int8 and bf16 vols/s at B = 8 and 32 and
+   `predict_proba` vols/s, the s2d bf16 stem's time against the fp32 7^3
+   stem's, a profile of one int8 batch split into K3, stem, quantize and
+   elementwise, max pool; and phase 8's trained folds quantized with
+   training volumes: `evaluate_records` AUC of int8 within 0.01 of bf16
+   over the 8 test subjects and 40 more held-out subjects of phase 8's
+   generator (the test subjects' AUC is printed too);
+12. one JSON line {"kernels": [...]} and, last, the device line.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -112,6 +131,40 @@ K1_REPLACES = "multimodal_ad_tpu/ops/fused_gather.py:63"
 K1_SOURCE = "multimodal_ad_tpu_torch/csrc/fused_gather.cu"
 K2_REPLACES = "multimodal_ad_tpu/ops/roi_pool.py:94"
 K2_SOURCE = "multimodal_ad_tpu_torch/csrc/roi_pool.cu"
+K3_REPLACES = "multimodal_ad_tpu/models/resnet3d_int8.py:131"
+K3_SOURCE = "multimodal_ad_tpu_torch/csrc/int8_conv.cu"
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, int8 dense tensor-core rate
+# K3 at the flagship's block convs, B = 8 (name, input grid, C_in, C_out,
+# kernel, stride, dilation, launches a forward, the path's epilogue)
+K3_SHAPES = [
+    ("stage 1, 3^3, 64->64", (23, 28, 23), 64, 64, 3, 1, 1, 4, "float32"),
+    ("stage 2 b0 conv1, 3^3/2, 64->128", (23, 28, 23), 64, 128, 3, 2, 1, 1, "int8"),
+    ("stage 2 down, 1^3/2, 64->128", (23, 28, 23), 64, 128, 1, 2, 1, 1, "float32"),
+    ("stage 2, 3^3, 128->128", (12, 14, 12), 128, 128, 3, 1, 1, 3, "float32"),
+    ("stage 3 b0 conv1, 3^3 d2, 128->256", (12, 14, 12), 128, 256, 3, 1, 2, 1, "int8"),
+    ("stage 3 down, 1^3, 128->256", (12, 14, 12), 128, 256, 1, 1, 1, 1, "float32"),
+    ("stage 3, 3^3 d2, 256->256", (12, 14, 12), 256, 256, 3, 1, 2, 3, "float32"),
+    ("stage 4 b0 conv1, 3^3 d4, 256->512", (12, 14, 12), 256, 512, 3, 1, 4, 1, "int8"),
+    ("stage 4 down, 1^3, 256->512", (12, 14, 12), 256, 512, 1, 1, 1, 1, "float32"),
+    ("stage 4, 3^3 d4, 512->512", (12, 14, 12), 512, 512, 3, 1, 4, 3, "float32"),
+]
+# a depth-50 Bottleneck set at B = 2 on reduced grids, and odd sizes
+K3_EXTRA = [
+    ("d50 stage 1 conv1, 1^3, 64->64, B=2", 2, (12, 14, 12), 64, 64, 1, 1, 1),
+    ("d50 stage 1 conv3, 1^3, 64->256, B=2", 2, (12, 14, 12), 64, 256, 1, 1, 1),
+    ("d50 stage 1 b1 conv1, 1^3, 256->64, B=2", 2, (12, 14, 12), 256, 64, 1, 1, 1),
+    ("d50 stage 2 conv2, 3^3/2, 128->128, B=2", 2, (12, 14, 12), 128, 128, 3, 2, 1),
+    ("d50 stage 2 down, 1^3/2, 256->512, B=2", 2, (12, 14, 12), 256, 512, 1, 2, 1),
+    ("d50 stage 3 conv2, 3^3 d2, 256->256, B=2", 2, (6, 7, 6), 256, 256, 3, 1, 2),
+    ("d50 stage 3 conv3, 1^3, 256->1024, B=2", 2, (6, 7, 6), 256, 1024, 1, 1, 1),
+    ("d50 stage 4 conv1, 1^3, 2048->512, B=2", 2, (6, 7, 6), 2048, 512, 1, 1, 1),
+    ("d50 stage 4 conv2, 3^3 d4, 512->512, B=2", 2, (6, 7, 6), 512, 512, 3, 1, 4),
+    ("d50 stage 4 conv3, 1^3, 512->2048, B=2", 2, (6, 7, 6), 512, 2048, 1, 1, 1),
+    ("B=1 stage 2 b0 conv1, 3^3/2, 64->128", 1, (23, 28, 23), 64, 128, 3, 2, 1),
+    ("B=3 stage 4, 3^3 d4, 512->512", 3, (12, 14, 12), 512, 512, 3, 1, 4),
+    ("B=3 odd grid 13x15x11, 3^3 d2, 96->40", 3, (13, 15, 11), 96, 40, 3, 1, 2),
+]
+INT8_HOST_VOLS = 2  # volumes of the card-vs-host int8 comparison
 N_ROIS = 166  # the 2-mm AAL grid
 N_ROIS_1MM = 600
 SHAPE_1MM = (182, 218, 182)
@@ -561,6 +614,329 @@ def autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext
     return out
 
 
+def k3_work(batch, grid, c_in, c_out, ksize, stride, dil):
+    """(operations, input bytes) the convolution needs: 2 C_in C_out per
+    (output voxel, tap) pair whose tap lands inside the volume (taps in the
+    padding multiply zeros), and the input voxels some tap reads (a strided
+    1^3 conv reads one in stride^3)."""
+    pad = dil * (ksize - 1) // 2
+    pairs, read = 1, 1
+    for s in grid:
+        n_out = (s + 2 * pad - dil * (ksize - 1) - 1) // stride + 1
+        pos = [o * stride - pad + t * dil for o in range(n_out) for t in range(ksize)]
+        inside = [q for q in pos if 0 <= q < s]
+        pairs *= len(inside)
+        read *= len(set(inside))
+    return 2.0 * batch * pairs * c_in * c_out, batch * read * c_in
+
+
+def k3_bound_ms(ops, in_bytes, m, n, k, out_bytes):
+    """Least time for K3's work: the input voxels it needs, the weights and
+    the epilogue vectors read once, the (M, N) output written once; or
+    `ops` (k3_work) at the int8 dense rate."""
+    moved = in_bytes + n * k + 8 * n + m * n * out_bytes
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def im2col(torch, x, ksize, stride, dil):
+    """(B, D, H, W, C) -> (M, k^3 C) int8 rows in K3's K order (tap-major),
+    zero rows for taps in the padding."""
+    pad = dil * (ksize - 1) // 2
+    xp = torch.nn.functional.pad(x, (0, 0) + (pad, pad) * 3)
+    b, d, h, w, c = x.shape
+    outs = [(s + 2 * pad - dil * (ksize - 1) - 1) // stride + 1 for s in (d, h, w)]
+    cols = []
+    for kd in range(ksize):
+        for kh in range(ksize):
+            for kw in range(ksize):
+                cols.append(xp[:, kd * dil::stride, kh * dil::stride, kw * dil::stride][
+                    :, :outs[0], :outs[1], :outs[2]])
+    return torch.cat(cols, dim=-1).reshape(-1, ksize ** 3 * c)
+
+
+def device_us(e):
+    """Device time of a profiler row of a device kernel in microseconds (0
+    for host-side rows, whose totals include their kernels; the attribute's
+    name differs between torch versions)."""
+    if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        return 0.0
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_recs):
+    """Phase 11: K3 against its plain version and its times, then int8
+    serving of phase 4's folds and of phase 8's trained folds."""
+    import copy
+
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir, make_volume
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor, evaluate_records
+
+    log("== 11. int8 serving: K3 against its plain version, then quantize_int8 of the "
+        "5-fold ResNet-18")
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def operands(batch, grid, c_in, c_out, ksize):
+        x = torch.randint(-127, 128, (batch, *grid, c_in), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (c_out, ksize, ksize, ksize, c_in), generator=g,
+                          device=dev, dtype=torch.int8)
+        # dequant factors of the size calibration gives (s_act * s_w ~ 1e-5)
+        kv = torch.rand(c_out, generator=g, device=dev) * 2e-5 + 1e-6
+        bv = torch.randn(c_out, generator=g, device=dev) * 0.5
+        return x, w, kv, bv
+
+    max_err = [0.0]  # the largest |K3 - plain| over every comparison
+
+    def check_k3(name, batch, grid, c_in, c_out, ksize, stride, dil):
+        """K3 against the plain version in all three epilogues: bit-equal."""
+        x, w, kv, bv = operands(batch, grid, c_in, c_out, ksize)
+        acc = k3.conv_i8_plain(x, w, stride, dil)
+        for epi in ("int32", "int8", "float32"):
+            got = k3.conv_i8(x, w, stride, dil, epi, kv, bv, 0.05)
+            ref = k3.epilogue_plain(acc, epi, kv, bv, 0.05)
+            err = float((got.double() - ref.double()).abs().max())
+            max_err[0] = max(max_err[0], err)
+            check(got.dtype == ref.dtype and torch.equal(got, ref),
+                  f"K3 {name} ({epi}) differs from its plain version by {err}")
+        return x, w, kv, bv, acc
+
+    k3.conv_i8.launches = 0
+    t0 = time.time()
+    for name, batch, grid, c_in, c_out, ksize, stride, dil in K3_EXTRA:
+        check_k3(name, batch, grid, c_in, c_out, ksize, stride, dil)
+    log(f"K3 bit-equal to its plain version in the int32, int8 and float32 epilogues at "
+        f"{len(K3_EXTRA)} depth-50 / odd shapes ({time.time() - t0:.1f} s)")
+
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    rows, forward = [], {"ops": 0.0, "ms": 0.0, "bound_ms": 0.0, "int_mm_ms": 0.0,
+                         "cudnn_bf16_ms": 0.0, "plain_ms": 0.0}
+    log(f"K3 at the flagship's block convs, B = {BATCH} (CUDA events, L2 flushed and a device "
+        f"spin before each launch, median of 25; plain version 10):")
+    for name, grid, c_in, c_out, ksize, stride, dil, per_fwd, epi in K3_SHAPES:
+        x, w, kv, bv, acc = check_k3(name, BATCH, grid, c_in, c_out, ksize, stride, dil)
+        m, n, kk = acc[..., 0].numel(), c_out, ksize ** 3 * c_in
+        a_mat = im2col(torch, x, ksize, stride, dil)
+        b_mat = w.reshape(c_out, kk).t()
+        lib_out = torch._int_mm(a_mat, b_mat)
+        check(torch.equal(lib_out, acc.reshape(m, n)), f"{name}: torch._int_mm differs")
+        del lib_out
+        x16 = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        w16 = w.to(torch.bfloat16).permute(0, 4, 1, 2, 3).contiguous(
+            memory_format=torch.channels_last_3d)
+        pad = dil * (ksize - 1) // 2
+        ms = time_cuda(torch, lambda: k3.conv_i8(x, w, stride, dil, epi, kv, bv, 0.05),
+                       flush=flush)
+        lib_ms = time_cuda(torch, lambda: torch._int_mm(a_mat, b_mat), flush=flush)
+        bf16_ms = time_cuda(torch, lambda: torch.nn.functional.conv3d(
+            x16, w16, stride=stride, padding=pad, dilation=dil), flush=flush)
+        plain_ms = time_cuda(torch, lambda: k3.epilogue_plain(
+            k3.conv_i8_plain(x, w, stride, dil), epi, kv, bv, 0.05), reps=10, flush=flush)
+        out_bytes = {"int8": 1, "float32": 4}[epi]
+        ops, in_bytes = k3_work(BATCH, grid, c_in, c_out, ksize, stride, dil)
+        bound, bound_by = k3_bound_ms(ops, in_bytes, m, n, kk, out_bytes)
+        rows.append({"shape": name, "M": m, "N": n, "K": kk, "epilogue": epi,
+                     "per_forward": per_fwd, "ops": ops, "dense_ops": 2.0 * m * n * kk,
+                     "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                     "int_mm_ms": lib_ms, "cudnn_bf16_ms": bf16_ms, "plain_ms": plain_ms,
+                     "tops": ops / (ms * 1e9)})
+        for key in ("ops", "ms", "bound_ms", "int_mm_ms", "cudnn_bf16_ms", "plain_ms"):
+            forward[key] += per_fwd * rows[-1][key]
+        log(f"  {name:36s} x{per_fwd} M {m:6d} N {n:3d} K {kk:5d} {epi:7s} K3 {ms:.4f} ms "
+            f"({rows[-1]['tops']:.0f} TOP/s in-volume, {ops / (2.0 * m * n * kk):.1%} of "
+            f"the dense taps) bound {bound:.4f} ({bound_by}) -> "
+            f"{bound / ms:.1%}; _int_mm {lib_ms:.4f}; bf16 cuDNN {bf16_ms:.4f}; plain "
+            f"{plain_ms:.3f}")
+        del x, w, acc, a_mat, b_mat, x16, w16
+    out["k3_shapes"] = rows
+    out["k3_forward"] = forward
+    out["k3_max_abs_err"] = max_err[0]
+    out["k3_check_launches"] = k3.conv_i8.launches
+    log(f"  the 19 block convs of one forward: K3 {forward['ms']:.3f} ms "
+        f"({forward['ops'] / (forward['ms'] * 1e9):.0f} TOP/s in-volume), bound "
+        f"{forward['bound_ms']:.3f} ({forward['bound_ms'] / forward['ms']:.1%}), _int_mm "
+        f"{forward['int_mm_ms']:.3f}, bf16 cuDNN "
+        f"{forward['cudnn_bf16_ms']:.3f}, plain {forward['plain_ms']:.2f} ms")
+    torch.cuda.empty_cache()
+
+    # ---- the main path: quantize_int8 -> predict_proba ----------------------
+    rng = np.random.default_rng(SEED + 60)
+    cal = np.stack([make_volume(rng, VOL_SHAPE, label=i % 2, extent_jitter=0.3,
+                                center_jitter=0.05) for i in range(4)])
+    pred16 = EnsemblePredictor.from_checkpoint_dir(ckpt_dir, batch_size=BATCH)
+    pred8 = EnsemblePredictor.from_checkpoint_dir(ckpt_dir, batch_size=BATCH)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pred8.quantize_int8(cal)
+    torch.cuda.synchronize()
+    out["calibration_s"] = time.time() - t0
+    fg.gather_normalize.launches = 0
+    k3.conv_i8.launches = 0
+    t0 = time.time()
+    p8 = pred8.predict_proba(vols)
+    torch.cuda.synchronize()
+    out["first_predict_s"] = time.time() - t0
+    out["k3_launches"] = k3.conv_i8.launches
+    out["k1_launches"] = fg.gather_normalize.launches
+    n_chunks = -(-len(vols) // BATCH)
+    out["k3_launches_per_batch"] = out["k3_launches"] // n_chunks
+    log(f"quantize_int8 (4 calibration volumes, {N_FOLDS} folds: export, folded bf16 forward, "
+        f"scales) "
+        f"{out['calibration_s']:.2f} s; predict_proba of {len(vols)} volumes (first call) "
+        f"{out['first_predict_s']:.2f} s: K3 launches {out['k3_launches']} (expected "
+        f"{n_chunks} x 19 x {N_FOLDS}), K1 launches {out['k1_launches']}")
+    check(out["k3_launches"] == n_chunks * 19 * N_FOLDS,
+          f"int8 serving ran K3 {out['k3_launches']} times")
+    check(out["k1_launches"] == n_chunks, f"int8 serving ran K1 {out['k1_launches']} times")
+    check(p8.shape == (len(vols), 2) and bool(np.isfinite(p8).all())
+          and bool(np.allclose(p8.sum(1), 1.0, atol=1e-5)), "bad int8 probabilities")
+    p16 = pred16.predict_proba(vols)
+    out["int8_vs_bf16_max_dprob"] = float(np.abs(p8 - p16).max())
+    out["int8_vs_bf16_argmax_agreement"] = float((p8.argmax(1) == p16.argmax(1)).mean())
+    log(f"int8 vs bf16 ensemble, {len(vols)} volumes: max |dprob| "
+        f"{out['int8_vs_bf16_max_dprob']:.4g}, argmax agreement "
+        f"{out['int8_vs_bf16_argmax_agreement']:.3f} (bounds 0.1 and 0.75); prob_1 int8 "
+        f"{np.round(p8[:, 1], 4).tolist()}")
+    check(out["int8_vs_bf16_max_dprob"] <= 0.1 and out["int8_vs_bf16_argmax_agreement"] >= 0.75,
+          "int8 ensemble strays from bf16")
+
+    # the card against the host CPU: the same export and scales
+    xs = fg.gather_normalize(torch.from_numpy(vols[:INT8_HOST_VOLS, ..., None]).to(dev),
+                             torch.arange(INT8_HOST_VOLS, device=dev), torch.bfloat16)
+    t0 = time.time()
+    with torch.inference_mode():
+        card_p = sum(torch.softmax(net(xs).float(), -1) for net in pred8.int8_folds) / N_FOLDS
+        hosts = [copy.deepcopy(net).cpu() for net in pred8.int8_folds]
+        host_p = sum(torch.softmax(net(xs.cpu()).float(), -1) for net in hosts) / N_FOLDS
+        h = pred8.int8_folds[0].stem(xs)
+        taps_c, taps_h = [], []
+        out_c, _ = pred8.int8_folds[0].blocks_forward(h, taps=taps_c)
+        out_h, _ = hosts[0].blocks_forward(h.cpu(), taps=taps_h)
+        logit_d = float((pred8.int8_folds[0].head(out_c).cpu() - hosts[0].head(out_h)).abs().max())
+    out["host_s"] = time.time() - t0
+    out["card_vs_host_max_dprob"] = float((card_p.cpu() - host_p).abs().max())
+    same_taps = all(torch.equal(a.cpu(), b) for a, b in zip(taps_c, taps_h))
+    log(f"int8 ensemble, card vs host CPU ({INT8_HOST_VOLS} volumes, same export and scales): "
+        f"max |dprob| {out['card_vs_host_max_dprob']:.3g} (bound 1e-2); from one card stem "
+        f"output, fold 1's {len(taps_c)} quant points bit-equal {same_taps}, block output "
+        f"bit-equal {torch.equal(out_c.cpu(), out_h)}, logits max |d| {logit_d:.3g} "
+        f"({out['host_s']:.1f} s on the host)")
+    check(out["card_vs_host_max_dprob"] <= 1e-2, "int8 card and host ensembles differ")
+    check(same_taps and torch.equal(out_c.cpu(), out_h) and logit_d <= 1e-5,
+          "int8 blocks differ between the card and the host")
+    out["card_vs_host_logits_from_one_stem"] = logit_d
+    del hosts, xs, h, out_c, out_h, taps_c, taps_h
+
+    # rates: resident corpus (uint8) at B = 8 and 32, and host volumes
+    ds = DeviceDataset(vols[..., None], np.arange(len(vols)) % 2, quantize="uint8")
+    rates = {}
+    for b in (8, 32):
+        plan = [np.asarray(rng.integers(0, len(vols), b), np.int64) for _ in range(4)]
+        for name, pred in (("bf16", pred16), ("int8", pred8), ("int8 again", pred8),
+                           ("bf16 again", pred16)):
+            pred.forward(ds.gather_normalized(plan[0], torch.bfloat16)["image"])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for i in range(6):
+                probs = pred.forward(ds.gather_normalized(plan[i % 4], torch.bfloat16)["image"])
+            torch.cuda.synchronize()
+            key = f"{name.split()[0]}_b{b}" + ("_2" if "again" in name else "")
+            rates[key] = 6 * b / (time.time() - t0)
+            check(bool(torch.isfinite(probs).all()), f"resident {name} B={b}: non-finite")
+        log(f"resident B={b}: int8 {rates[f'int8_b{b}']:.2f} / {rates[f'int8_b{b}_2']:.2f} "
+            f"vols/s, bf16 {rates[f'bf16_b{b}']:.2f} / {rates[f'bf16_b{b}_2']:.2f} vols/s "
+            f"(gather + K1 + 5-fold forward, 6 batches, in turns bf16, int8, int8, bf16) on "
+            f"{card}")
+    out["resident_vols_per_s"] = rates
+    serve = {}
+    for name, pred in (("int8", pred8), ("bf16", pred16)):
+        reps = []
+        for _ in range(3):
+            t0 = time.time()
+            pred.predict_proba(vols)
+            reps.append(time.time() - t0)
+        serve[name] = len(vols) / statistics.median(reps)
+    out["serving_vols_per_s"] = serve
+    log(f"predict_proba on {len(vols)} host volumes (chunks 8 + 4, 5 folds, median of 3): "
+        f"int8 {serve['int8']:.2f} vols/s, bf16 {serve['bf16']:.2f} vols/s on {card}")
+
+    # the s2d bf16 stem against the fp32 7^3 stem under bf16 autocast
+    x8 = ds.gather_normalized(np.arange(BATCH) % len(vols), torch.bfloat16)["image"]
+    net, fold = pred8.int8_folds[0], pred16.folds[0]
+    with torch.inference_mode():
+        s2d_ms = time_cuda(torch, lambda: net.stem(x8), flush=flush)
+        x_ncdhw = x8.permute(0, 4, 1, 2, 3)
+
+        def stem_fp32():
+            with torch.autocast(x_ncdhw.device.type, dtype=torch.bfloat16):
+                return fold.maxpool(torch.relu(fold.bn1(fold.conv1(x_ncdhw))))
+
+        stem7_ms = time_cuda(torch, stem_fp32, flush=flush)
+    out["stem_s2d_bf16_ms"], out["stem_7cubed_autocast_ms"] = s2d_ms, stem7_ms
+    log(f"stem of one fold at B={BATCH}: s2d bf16 (conv 4^3 over 8 phases + affine + ReLU + "
+        f"max pool) {s2d_ms:.3f} ms; the bf16 model's 7^3 stride-2 stem (conv + BN + ReLU + max "
+        f"pool, autocast) {stem7_ms:.3f} ms")
+
+    # profile of one int8 batch of 8 (5 folds), split by kind
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pred8.forward(x8)
+        torch.cuda.synchronize()
+    split = {"K3": 0.0, "stem conv": 0.0, "max pool": 0.0, "quantize and elementwise": 0.0}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        us = device_us(e)
+        if "conv_i8" in key:
+            split["K3"] += us
+        elif "max_pool" in key or "maxpool" in key:
+            split["max pool"] += us
+        elif any(t in key for t in ("conv", "xmma", "fprop", "cudnn", "implicit", "gemm")):
+            split["stem conv"] += us
+        else:
+            split["quantize and elementwise"] += us
+    total = sum(split.values())
+    out["profile_us"] = split
+    log(f"profile of one int8 batch of {BATCH} (5 folds; device time {total / 1e3:.3f} ms): "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / max(total, 1e-9):.1%})" for k, v in split.items()))
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                  max_name_column_width=60))
+    del ds, x8, pred16, pred8, flush
+
+    # phase 8's trained folds: int8 keeps their held-out AUC. The 8 test
+    # subjects give 16 (AD, CN) pairs, so one pair that int8 reorders moves
+    # the AUC by 0.0625; 40 more subjects of phase 8's generator (unseen in
+    # training) make 576 pairs, where 0.01 is six reordered pairs.
+    more_csv, more_mri = make_adni_dir(os.path.join(work, "int8_held_out"), n_per_class=20,
+                                       classes=("AD", "CN"), shape=VOL_SHAPE, seed=SEED + 8,
+                                       extent_jitter=0.3, center_jitter=0.04, noise=0.25)
+    held_out = test_recs + ADNIManifest(more_csv, more_mri, verbose=False).data_dict
+    trained = EnsemblePredictor.from_checkpoint_dir(train_ckpt, batch_size=BATCH)
+    fp, fp_all = evaluate_records(trained, test_recs), evaluate_records(trained, held_out)
+    trained.quantize_int8(np.stack([load_volume(r["MRI"]) for r in tr_val[:4]]))
+    q8, q8_all = evaluate_records(trained, test_recs), evaluate_records(trained, held_out)
+    out["trained_test_bf16"], out["trained_test_int8"] = fp, q8
+    out["trained_held_out_bf16"], out["trained_held_out_int8"] = fp_all, q8_all
+    log(f"trained best_fold1..2 (evaluate_records, no sklearn): {len(test_recs)} test subjects "
+        f"bf16 AUC {fp['AUC']:.4f} ACC {fp['ACC']:.4f}, int8 AUC {q8['AUC']:.4f} ACC "
+        f"{q8['ACC']:.4f}; {len(held_out)} held-out subjects bf16 AUC {fp_all['AUC']:.4f} ACC "
+        f"{fp_all['ACC']:.4f}, int8 AUC {q8_all['AUC']:.4f} ACC {q8_all['ACC']:.4f} (bound "
+        f"|dAUC| <= 0.01 on the {len(held_out)})")
+    check(abs(q8_all["AUC"] - fp_all["AUC"]) <= 0.01,
+          f"int8 held-out AUC {q8_all} drifted from bf16 {fp_all}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -592,6 +968,7 @@ def main() -> int:
     from multimodal_ad_tpu_torch.models.unet3d import UNet3D
     from multimodal_ad_tpu_torch.ops import _build
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
     from multimodal_ad_tpu_torch.ops import roi_pool as rp
     from multimodal_ad_tpu_torch.ops.augment import augment_batch
     from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
@@ -617,14 +994,16 @@ def main() -> int:
     # ---- 2. build K1 ---------------------------------------------------
     log("== 2. build")
     t0 = time.time()
-    _build.build(["fused_gather", "roi_pool"])  # one nvcc each, in parallel
+    _build.build(["fused_gather", "roi_pool", "int8_conv"])  # one nvcc each, in parallel
     fg._lib()
     rp._lib()
-    log(f"K1 and K2 built and loaded in {time.time() - t0:.2f} s "
+    k3._lib()
+    build_s = time.time() - t0
+    log(f"K1, K2 and K3 built and loaded in {build_s:.2f} s "
         f"({_build.library_path('fused_gather').name}, "
-        f"{_build.library_path('roi_pool').name})")
-    log(_build.build_log("fused_gather").strip())
-    log(_build.build_log("roi_pool").strip())
+        f"{_build.library_path('roi_pool').name}, {_build.library_path('int8_conv').name})")
+    for name in ("fused_gather", "roi_pool", "int8_conv"):
+        log(_build.build_log(name).strip())
 
     # ---- 3. K1 against its plain version --------------------------------
     log("== 3. K1 vs plain, 32 volumes of 91x109x91")
@@ -1310,17 +1689,22 @@ def main() -> int:
         ADNIManifest(label_csv, mri_dir, verbose=False).data_dict, 0.2, 42)[1]
     ae = autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext_records,
                            labels, roi_names, os.path.join(work, "out1", "roi_features.csv"))
+
+    # ---- 11. int8 serving -------------------------------------------------
+    q8 = int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_recs)
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 11. result ----------------------------------------------------
+    # ---- 12. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
+    k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512: the largest bound
     kernels = {"kernels": [{
         "name": "fused_gather_normalize",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (serve_launches + resident_launches + ext_k1 + train_launches
-                     + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]),
+                     + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]
+                     + q8["k1_launches"]),
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
@@ -1328,6 +1712,7 @@ def main() -> int:
         "launches_unet_training": unet["k1_launches"],
         "launches_autoencoder": ae["k1_launches"],
         "launches_trained_extraction": ae["extraction_k1"],
+        "launches_int8_serving": q8["k1_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1367,6 +1752,26 @@ def main() -> int:
         "ms_1mm_600_rois": k2_1mm_ms,
         "bound_ms_1mm_600_rois": k2_1mm_bound,
         "design_pr": 3,
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "not_pallas": "an XLA int8 conv_general_dilated (no stock CUDA int8 Conv3d)",
+        "launches": q8["k3_launches"],
+        "launches_per_batch": q8["k3_launches_per_batch"],
+        "max_abs_err": q8["k3_max_abs_err"],
+        "ms": k3_top["ms"],
+        "plain_ms": k3_top["plain_ms"],
+        "bound_ms": k3_top["bound_ms"],
+        "bound_by": k3_top["bound_by"],
+        "library_ms": k3_top["int_mm_ms"],
+        "library_call": "torch._int_mm on a pre-built im2col (M, K) int8 matrix",
+        "cudnn_bf16_ms": k3_top["cudnn_bf16_ms"],
+        "shape": f"{k3_top['shape']}, B={BATCH}, {k3_top['epilogue']} epilogue",
+        "forward_19_convs": q8["k3_forward"],
+        "per_shape": q8["k3_shapes"],
+        "design_pr": 6,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},
@@ -1385,6 +1790,8 @@ def main() -> int:
                     "training_cli_peak_gb": train_peak_gb,
                     "training_test_avg": results["avg"],
                     "unet_classifier": unet, "autoencoder": ae,
+                    "int8": {k: v for k, v in q8.items() if k not in ("k3_shapes",)},
+                    "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

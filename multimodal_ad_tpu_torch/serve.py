@@ -12,11 +12,16 @@ the TPU package's serve.py).
   in one pass. Multi-channel volumes normalize per channel, as the host
   path does: (n, X, Y, Z, C) is viewed as n*C channel planes. K1 writes
   bf16 directly when the model computes in bf16 (the first convolution
-  would round its input to bf16 anyway).
+  would round its input to bf16 anyway),
+- `quantize_int8` turns the ensemble into int8 serving
+  (models/resnet3d_int8.py): every fold is exported, calibrated on the
+  same preprocessing and then served by its `ResNet3DInt8`, whose block
+  convolutions run K3 (ops/int8_conv.py) on the card.
 
 Usage:
     pred = EnsemblePredictor.from_checkpoint_dir("checkpoints/")
     proba = pred.predict_proba(volumes)   # (n, X, Y, Z[, C]) -> (n, C)
+    pred.quantize_int8(calibration_volumes)   # later calls serve int8
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from .models.resnet3d import generate_model
 from .ops.fused_gather import gather_normalize
 from .ops.normalize import NORMALIZERS
 from .train import checkpoint as ckpt
+from .train.metrics import _macro_ovr_auc, binary_auc
 
 
 def labels_from_proba(proba: np.ndarray) -> np.ndarray:
@@ -67,6 +73,7 @@ class EnsemblePredictor:
             m = copy.deepcopy(model)
             m.load_state_dict(sd)
             self.folds.append(m.eval().requires_grad_(False).to(self.device))
+        self.int8_folds = None  # set by quantize_int8
 
     # ---- construction -------------------------------------------------
 
@@ -101,21 +108,63 @@ class EnsemblePredictor:
         return cls(model, state_dicts, batch_size=batch_size or cfg.batch_size,
                    normalizer=cfg.normalizer, device=device)
 
+    # ---- int8 serving ---------------------------------------------------
+
+    @torch.inference_mode()
+    def quantize_int8(self, calibration_volumes, preprocess: bool = True):
+        """Convert the ensemble to int8 serving and return self.
+
+        Every fold is exported (BN folded, per-channel int8 weights) and
+        calibrated: `calibration_volumes`, a small representative set, pass
+        through the same preprocessing as predict (K1, in chunks of the
+        batch size) and the folded fp graph; each fold's activation scales
+        are max|h| / 127 + 1e-12 over the set, in float32. Later `forward`
+        and `predict_proba` calls run the int8 folds (softmax in float32,
+        fold mean on the device). From this call on, preprocessing writes
+        bf16, the int8 stem's input type. Supports every ResNet3D depth."""
+        from .models import resnet3d_int8 as q8
+
+        vols = np.asarray(calibration_volumes, np.float32)
+        if vols.shape[0] == 0:
+            raise ValueError("quantize_int8 got no calibration volumes")
+        nets = []
+        for m in self.folds:
+            qp = q8.export_int8(m.state_dict(), depth=m.depth,
+                                shortcut_type=m.shortcut_type)
+            nets.append(q8.ResNet3DInt8(qp).to(self.device))
+        self.input_dtype = torch.bfloat16
+        maxes = None
+        for i in range(0, vols.shape[0], self.batch_size):
+            chunk = torch.from_numpy(np.ascontiguousarray(vols[i:i + self.batch_size]))
+            x = self._prep(chunk.to(self.device), preprocess)
+            obs = torch.stack([net.observe(x) for net in nets])  # (K, P)
+            maxes = obs if maxes is None else torch.maximum(maxes, obs)
+        # on the host in numpy float32, a true division as the TPU package's
+        # (a CUDA division by a host scalar multiplies by its reciprocal)
+        fold_scales = maxes.float().cpu().numpy() / np.float32(127.0) + np.float32(1e-12)
+        for net, svec in zip(nets, fold_scales):
+            net.set_scales(svec).strip_fp()
+        self.int8_folds = nets
+        return self
+
     # ---- inference -----------------------------------------------------
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized device batch (B, X, Y, Z, C) -> fold-mean
-        probabilities (B, classes), float32, on the device."""
+        probabilities (B, classes), float32, on the device; through the
+        int8 folds after `quantize_int8`."""
         acc = None
-        for m in self.folds:
+        for m in self.int8_folds or self.folds:
             p = torch.softmax(m(x).float(), dim=-1)
             acc = p if acc is None else acc + p
         return acc / self.n_folds
 
     def _prep(self, chunk: torch.Tensor, preprocess: bool) -> torch.Tensor:
         """Device chunk (real, X, Y, Z[, C]) float32 -> padded, normalized
-        batch (batch_size, X, Y, Z, C)."""
+        batch (batch_size, X, Y, Z, C) in `input_dtype` (the model's compute
+        type; bf16 once `quantize_int8` has begun)."""
+        dtype = self.input_dtype
         if chunk.dim() == 4:
             chunk = chunk.unsqueeze(-1)
         real, *spatial, c = chunk.shape
@@ -126,10 +175,9 @@ class EnsemblePredictor:
         planes = chunk.permute(0, 4, 1, 2, 3).contiguous().view(real * c, -1)
         plane_idx = (rows[:, None] * c + torch.arange(c)).reshape(-1)
         if self.normalizer == "scale_intensity":
-            x = gather_normalize(planes, plane_idx, self.input_dtype)
+            x = gather_normalize(planes, plane_idx, dtype)
         else:
-            x = NORMALIZERS[self.normalizer](
-                planes[plane_idx.to(chunk.device)]).to(self.input_dtype)
+            x = NORMALIZERS[self.normalizer](planes[plane_idx.to(chunk.device)]).to(dtype)
         # channel planes are NCDHW memory; hand the model its channels-last view
         return x.view(bs, c, *spatial).permute(0, 2, 3, 4, 1)
 
@@ -153,17 +201,17 @@ class EnsemblePredictor:
 
 def evaluate_records(predictor: EnsemblePredictor, records) -> dict:
     """Held-out AUC/ACC of a fold-ensemble predictor on manifest records
-    ({'MRI': path, 'label': int}), with the prob > 0.5 binary rule."""
-    from sklearn.metrics import accuracy_score, roc_auc_score
-
+    ({'MRI': path, 'label': int}), with the prob > 0.5 binary rule. AUC is
+    sklearn's roc_auc_score (binary, or the macro one-vs-rest mean) and ACC
+    its accuracy_score, computed in numpy (train/metrics.py): the card's
+    machine has no sklearn."""
     from .data.pipeline import load_volume
 
     vols = np.stack([load_volume(r["MRI"]) for r in records])
     y = np.asarray([r["label"] for r in records])
     proba = predictor.predict_proba(vols)
     if proba.shape[1] == 2:
-        auc = roc_auc_score(y, proba[:, 1])
+        auc = binary_auc(y, proba[:, 1])
     else:
-        auc = roc_auc_score(y, proba, multi_class="ovr")
-    return {"AUC": float(auc),
-            "ACC": float(accuracy_score(y, labels_from_proba(proba)))}
+        auc = _macro_ovr_auc(y, proba, proba.shape[1])
+    return {"AUC": float(auc), "ACC": float(np.mean(y == labels_from_proba(proba)))}

@@ -8,8 +8,10 @@ parameters), 20 epochs, 2 folds, batch 8, lr 1e-3, the resident corpus
 with device augmentation and precise-BN, the `adaptive_normal`
 normalizer; then the same assertions: the train loss falls in every fold,
 the final validation AUC is at least 0.9 in every fold, the fold-ensemble
-test AUC at least 0.85 and ACC at least 0.7. (The TPU script's int8 half
-waits for the port's int8 slice.)
+test AUC at least 0.85 and ACC at least 0.7. Then its int8 half: the
+trained best_fold{k} are served by EnsemblePredictor, quantized with four
+training volumes (`quantize_int8`), and `evaluate_records` must give a
+held-out test AUC within 0.01 of the bf16 ensemble's (`int8_parity`).
 
     python3 scripts/learning_proof_cuda.py [--out DIR]
 
@@ -44,7 +46,11 @@ def main(argv=None) -> int:
     import torch
 
     from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.data.splits import stratified_test_split
     from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor, evaluate_records
     from multimodal_ad_tpu_torch.train.cv import train_cv
 
     if not torch.cuda.is_available():
@@ -72,6 +78,17 @@ def main(argv=None) -> int:
 
         with open(os.path.join(ckpt_dir, "cv_results.csv")) as f:
             rows = list(csv.reader(f))
+
+        # the int8 half: quantize the trained fold ensemble, held-out AUC kept
+        records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task, verbose=False).data_dict
+        tr_val, test_data = stratified_test_split(records, cfg.split_ratio, cfg.seed)
+        pred = EnsemblePredictor.from_checkpoint_dir(ckpt_dir, device="cuda")
+        fp = evaluate_records(pred, test_data)
+        t1 = time.time()
+        pred.quantize_int8(np.stack([load_volume(r["MRI"]) for r in tr_val[:4]]))
+        calib_s = time.time() - t1
+        q8 = evaluate_records(pred, test_data)
+        print(f"int8 parity: bf16 {fp} int8 {q8} (calibration {calib_s:.2f} s)", flush=True)
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             shutil.copy(os.path.join(ckpt_dir, "cv_results.csv"),
@@ -82,7 +99,10 @@ def main(argv=None) -> int:
     summary = {"card": card, "wall_seconds": wall, "test_avg": results["avg"],
                "test_std": results["std"], "volume_shape": [91, 109, 91],
                "model_depth": 18, "config": "scripts/learning_proof_cuda.py",
-               "data_path": "hbm_cache + device-side augmentation + precise_bn"}
+               "data_path": "hbm_cache + device-side augmentation + precise_bn",
+               "int8_parity": {"bf16": fp, "int8": q8, "calibration_s": calib_s,
+                               "assertion": "|int8 AUC - bf16 AUC| <= 0.01 on the trained "
+                                            "fold ensemble"}}
     if args.out:
         with open(os.path.join(args.out, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
@@ -105,6 +125,8 @@ def main(argv=None) -> int:
         assert final_val_auc >= 0.9, f"fold {fold}: final val AUC {final_val_auc:.3f} < 0.9"
     assert results["avg"]["AUC"] >= 0.85, results["avg"]
     assert results["avg"]["ACC"] >= 0.7, results["avg"]
+    assert abs(q8["AUC"] - fp["AUC"]) <= 0.01, (
+        f"int8 test AUC {q8['AUC']:.4f} drifted from bf16 {fp['AUC']:.4f}")
     return 0
 
 

@@ -5,7 +5,8 @@
 Runs the comparisons of tests/test_torch_port_*.py on the same seeded
 inputs and prints the largest absolute difference of each, one line per
 comparison, so PERF.md can quote measured errors rather than the tests'
-bounds. Needs both jax and torch; runs in a few minutes.
+bounds. Needs both jax and torch; runs in a few minutes. `--only int8`
+runs the int8 serving slice's comparisons alone.
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ def report(name, a, b):
 
 
 def main():
+    if sys.argv[1:] == ["--only", "int8"]:
+        int8_parity()
+        return
     rng = np.random.default_rng(42)
     # K1 plain version vs the Pallas kernel (interpret) and the XLA twin
     vols = rng.integers(-50, 4096, (5, 9, 11, 10, 1)).astype(np.int16)
@@ -196,6 +200,7 @@ def main():
 
     training_parity()
     unet_training_parity()
+    int8_parity()
 
 
 def training_parity():
@@ -422,6 +427,82 @@ def unet_training_parity():
     print(f"{'autoencoder step on JAX mask: loss rel, params max, share <= 1e-5':58s} "
           f"{abs(float(tl) / float(jl) - 1):.3e}, {float(d.max()):.3e}, "
           f"{float((d <= 1e-5).float().mean()):.5f}")
+
+
+def int8_parity():
+    """The int8 serving slice: K3's plain version and epilogues, the export,
+    the blocks from the JAX package's stem output, whole forwards and
+    calibration, the .npz format both ways, quantize_int8 on two folds, the
+    folded forward against the eval-mode model, and a trained model's AUC;
+    each against the JAX package (tests/test_torch_port_int8.py's inputs)."""
+    from multimodal_ad_tpu.models import resnet3d_int8 as jq8
+    from multimodal_ad_tpu_torch.models import resnet3d_int8 as tq8
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
+
+    worst = 0
+    for ksize, stride, dil in ((3, 1, 1), (3, 2, 1), (3, 1, 2), (3, 1, 4), (3, 2, 2),
+                               (1, 1, 1), (1, 2, 1)):
+        for c_in in (32, 64):
+            r = np.random.default_rng(ksize * 100 + stride * 10 + dil + c_in)
+            x = r.integers(-127, 128, (2, 7, 9, 5, c_in), dtype=np.int8)
+            w = r.integers(-127, 128, (ksize,) * 3 + (c_in, 24), dtype=np.int8)
+            ref = np.asarray(jq8._conv_i8(jnp.asarray(x), jnp.asarray(w), stride, dil, ksize))
+            ours = k3.conv_i8(torch.from_numpy(x), k3.relayout_weight(torch.from_numpy(w)),
+                              stride, dil).numpy()
+            worst = max(worst, int(np.abs(ours.astype(np.int64) - ref).max()))
+    print(f"{'K3 plain vs _conv_i8, 14 shapes: max |d| (int32)':58s} {worst}")
+
+    shape = (16, 20, 16)
+    for depth, sc, seed in ((10, "B", 21), (10, "A", 22), (50, "B", 23)):
+        jm = JaxResNet3D(depth=depth, num_classes=2, shortcut_type=sc, dropout_rate=0.0)
+        v = random_flax_variables(jm, (*shape, 1), seed)
+        sd = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, v), depth, sc)
+        tag = f"depth {depth} {sc}"
+        jqp, tqp = jq8.export_int8(v, depth, sc), tq8.export_int8(sd, depth, sc)
+        diff = max(float(np.abs(np.asarray(tqp["blocks"][i][n][k], np.float64)
+                                - np.asarray(b[n][k], np.float64)).max())
+                   for i, b in enumerate(jqp["blocks"])
+                   for n in ("conv1", "conv2", "conv3", "down") if isinstance(b.get(n), dict)
+                   for k in ("wq", "s", "b", "w_fp"))
+        print(f"{'export_int8 ' + tag + ': wq/s/b/w_fp max |d|':58s} {diff:.3e}")
+        rr = np.random.default_rng
+        cal = rr(seed + 1).normal(size=(2, *shape, 1)).astype(np.float32)
+        x = rr(seed + 2).normal(size=(2, *shape, 1)).astype(np.float32)
+        jsc = jq8.calibrate_int8(jqp, [cal])
+        tsc = tq8.calibrate_int8(tqp, [torch.from_numpy(cal)])
+        rel = max(abs(tsc[k] / jsc[k] - 1) for k in jsc)
+        print(f"{'calibrate_int8 ' + tag + ': scales max rel':58s} {rel:.3e}")
+        stem = np.asarray(jq8._stem_bf16(jqp, jnp.asarray(x)), np.float32)
+        jint8 = np.asarray(jq8.resnet3d_int8_apply(jqp, jsc, jnp.asarray(x)), np.float32)
+        net = tq8.ResNet3DInt8(tqp, jsc)
+        with torch.inference_mode():
+            tstem = net.stem(torch.from_numpy(x)).float().numpy()
+            h, _ = net.blocks_forward(torch.from_numpy(stem).to(torch.bfloat16))
+            from_stem = net.head(h).numpy()
+            full = net(torch.from_numpy(x)).numpy()
+            folded = net(torch.from_numpy(x), quantized=False).numpy()
+        jfold = np.asarray(jq8.resnet3d_folded_apply(jqp, jnp.asarray(x)), np.float32)
+        spread = np.abs(jint8).max()
+        print(f"{'  s2d bf16 stem output: share of elements that differ':58s} "
+              f"{(tstem != stem).mean():.3e}")
+        report(f"  int8 logits from the JAX stem output ({tag})", from_stem, jint8)
+        print(f"{'  int8 logits from the input: max |d| / spread':58s} "
+              f"{np.abs(full - jint8).max() / spread:.3e}")
+        print(f"{'  folded logits from the input: max |d| / spread':58s} "
+              f"{np.abs(folded - jfold).max() / np.abs(jfold).max():.3e}")
+
+    jm = JaxResNet3D(depth=10, num_classes=2, dropout_rate=0.0)
+    fold_vars = [random_flax_variables(jm, (*shape, 1), s) for s in (31, 32)]
+    sds = [state_dict_from_flax(jax.tree_util.tree_map(np.asarray, v), 10, "B")
+           for v in fold_vars]
+    r = np.random.default_rng(33)
+    cal = r.normal(100, 30, size=(3, *shape)).astype(np.float32)
+    vols = r.normal(100, 30, size=(5, *shape)).astype(np.float32)
+    ref = JaxPredictor(jm, fold_vars, batch_size=4).quantize_int8(cal).predict_proba(vols)
+    port = EnsemblePredictor(generate_model(model_depth=10), sds, batch_size=4,
+                             device="cpu").quantize_int8(cal)
+    report("EnsemblePredictor.quantize_int8 (2 folds, 5 vols, bs 4)",
+           port.predict_proba(vols), ref)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Guards of the port: it imports without JAX or the JAX package, names
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
-kernels K1 and K2 agree with their plain versions on a card (those tests
-carry the `cuda` marker and skip where there is none), as do three fp32
-train steps of the ResNet and of the U-Net classifier, the training epoch
-iterator and the host-planned augmentation. This file imports no JAX, so
-it also runs on the card's machine."""
+kernels K1, K2 and K3 agree with their plain versions on a card (those
+tests carry the `cuda` marker and skip where there is none), as do three
+fp32 train steps of the ResNet and of the U-Net classifier, the training
+epoch iterator, the host-planned augmentation and the int8 ensemble. This
+file imports no JAX, so it also runs on the card's machine."""
 
 import os
 import pkgutil
@@ -19,6 +19,7 @@ import torch
 import multimodal_ad_tpu_torch
 from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg
+from multimodal_ad_tpu_torch.ops import int8_conv as tk3
 from multimodal_ad_tpu_torch.ops import roi_pool as trp
 
 PKG_DIR = os.path.dirname(multimodal_ad_tpu_torch.__file__)
@@ -152,6 +153,37 @@ def test_unet_training_runs_without_sklearn_pandas_matplotlib_or_tensorboard(tmp
     assert os.path.isfile(tmp_path / "out" / "roi_features.csv")
 
 
+def test_int8_serving_runs_without_sklearn(tmp_path):
+    """Serving, quantize_int8 and evaluate_records run end to end on the
+    CPU with JAX and sklearn blocked; evaluate_records gives the int8
+    ensemble's AUC and ACC."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'multimodal_ad_tpu', 'sklearn'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "from multimodal_ad_tpu_torch.data.adni import ADNIManifest\n"
+        "from multimodal_ad_tpu_torch.data.pipeline import load_volume\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir\n"
+        "from multimodal_ad_tpu_torch.models.resnet3d import generate_model\n"
+        "from multimodal_ad_tpu_torch.serve import EnsemblePredictor, evaluate_records\n"
+        f"root = {str(tmp_path)!r}\n"
+        "csv_path, mri = make_adni_dir(root, n_per_class=3, shape=(12, 14, 12))\n"
+        "recs = ADNIManifest(csv_path, mri, verbose=False).data_dict\n"
+        "model = generate_model(model_depth=10, generator=torch.Generator().manual_seed(0))\n"
+        "pred = EnsemblePredictor(model, [model.state_dict()] * 2, batch_size=4, device='cpu')\n"
+        "fp = evaluate_records(pred, recs)\n"
+        "pred.quantize_int8(np.stack([load_volume(r['MRI']) for r in recs[:3]]))\n"
+        "q8 = evaluate_records(pred, recs)\n"
+        "assert len(pred.int8_folds) == 2 and set(q8) == {'AUC', 'ACC'}, q8\n"
+        "assert all(0.0 <= v <= 1.0 for v in (*fp.values(), *q8.values())), (fp, q8)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -230,6 +262,24 @@ def test_unet_entry_points_raise_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         load_autoencoder(str(tmp_path / "ckpt"), cfg)
     assert not os.path.exists(tmp_path / "ckpt")  # nothing ran on the host
+
+
+def test_int8_serving_raises_without_a_card(no_cuda, tmp_path):
+    """quantize_int8 is reached through a predictor on the card: without
+    one the predictor raises before any export or calibration."""
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.train import checkpoint as ckpt
+
+    model = generate_model(model_depth=10)
+    vols = np.zeros((2, 8, 8, 8), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EnsemblePredictor(model, [model.state_dict()], device="cuda").quantize_int8(vols)
+    ckpt.save_checkpoint(str(tmp_path / "best_fold1"), model.state_dict(),
+                         config=Config(model_depth=10).to_dict())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EnsemblePredictor.from_checkpoint_dir(str(tmp_path)).quantize_int8(vols)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -590,3 +640,109 @@ def test_unet_classifier_steps_on_the_card_match_the_host(cuda):
                 torch.testing.assert_close(c[k], v, rtol=1e-3, atol=1e-3, msg=k)
             elif v.is_floating_point():
                 assert float((c[k] - v).abs().max()) <= 2e-3, k
+
+
+def _k3_inputs(shape, c_out, ksize, seed):
+    """Full-range int8 activations and (C_out, k, k, k, C_in) weights, and
+    epilogue vectors of the magnitudes calibration gives."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (c_out, ksize, ksize, ksize, shape[-1]), generator=g,
+                      dtype=torch.int8)
+    x[0, :4, :4, :4] = 127  # a saturated corner: channel 0 adds 127**2 per product there
+    w[0] = 127
+    k = torch.rand(c_out, generator=g) * 1e-5 + 1e-6
+    b = torch.randn(c_out, generator=g) * 0.5
+    return x, w, k, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize,stride,dil", [(3, 1, 1), (3, 2, 1), (3, 1, 2), (3, 1, 4),
+                                              (1, 1, 1), (1, 2, 1)])
+@pytest.mark.parametrize("shape,c_out", [((2, 7, 9, 5, 32), 24), ((1, 12, 14, 12, 64), 136)])
+def test_k3_matches_plain(cuda, ksize, stride, dil, shape, c_out):
+    """K3 against conv_i8_plain and the plain epilogues on the card:
+    bit-equal in all three epilogues (odd grids; a tile's rows and channels
+    partly past M and N)."""
+    x, w, k, b = _k3_inputs(shape, c_out, ksize, seed=ksize + 10 * stride + 100 * dil)
+    x, w, k, b = x.to(cuda), w.to(cuda), k.to(cuda), b.to(cuda)
+    acc = tk3.conv_i8_plain(x, w, stride, dil)
+    for epilogue in ("int32", "int8", "float32"):
+        before = tk3.conv_i8.launches
+        out = tk3.conv_i8(x, w, stride, dil, epilogue, k, b, 0.05)
+        torch.cuda.synchronize()
+        assert tk3.conv_i8.launches == before + 1
+        ref = tk3.epilogue_plain(acc, epilogue, k, b, 0.05)
+        assert out.dtype == ref.dtype and torch.equal(out, ref), epilogue
+    assert int(acc.abs().max()) >= 127 ** 2 * shape[-1]  # the saturated corner's sums
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 4, 4, 4, 32), dtype=torch.int8, device=cuda)
+    w = torch.zeros((8, 3, 3, 3, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # C_in % 32
+        tk3.conv_i8(x[..., :16].contiguous(), w[..., :16].contiguous())
+    with pytest.raises(ValueError):  # C_out % 8
+        tk3.conv_i8(x, w[:4].contiguous())
+    with pytest.raises(TypeError):
+        tk3.conv_i8(x.float(), w)
+    with pytest.raises(ValueError):  # a strided view
+        tk3.conv_i8(torch.zeros((1, 4, 4, 4, 64), dtype=torch.int8, device=cuda)[..., ::2], w)
+    with pytest.raises(ValueError):  # weights on the host
+        tk3.conv_i8(x, w.cpu())
+    before = tk3.conv_i8.launches
+    assert tk3.conv_i8(x, w).shape == (1, 4, 4, 4, 8)
+    assert tk3.conv_i8.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_int8_ensemble_on_the_card_matches_the_host(cuda):
+    """Two depth-10 folds quantized on the card and on the host from the
+    same weights and calibration volumes: K3 launched once per block conv,
+    fold and chunk; the ensembles' probabilities agree within 1e-2 (the
+    bf16 stem accumulates in another order in cuDNN); each side's scales
+    are its observed maxima / 127 + 1e-12 in float32 with a true division,
+    bit for bit, as the TPU package computes them; the blocks fed one stem
+    output give bit-equal quant points and outputs."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models import resnet3d_int8 as tq8
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+
+    resolve_device("cuda")
+    model = generate_model(model_depth=10, generator=torch.Generator().manual_seed(3))
+    sds = [model.state_dict()]
+    for bn in (m for m in model.modules() if isinstance(m, torch.nn.BatchNorm3d)):
+        bn.weight.data.mul_(0.9)
+    sds.append(model.state_dict())
+    rng = np.random.default_rng(4)
+    cal = rng.normal(100, 30, size=(3, 20, 24, 20)).astype(np.float32)
+    vols = rng.normal(100, 30, size=(5, 20, 24, 20)).astype(np.float32)
+    preds = {dev: EnsemblePredictor(model, sds, batch_size=4, device=dev).quantize_int8(cal)
+             for dev in ("cpu", "cuda")}
+    before = tk3.conv_i8.launches
+    card = preds["cuda"].predict_proba(vols)
+    torch.cuda.synchronize()
+    n_convs = sum(len(b["convs"]) for b in preds["cuda"].int8_folds[0].blocks)
+    assert tk3.conv_i8.launches - before == 2 * 2 * n_convs  # 2 chunks x 2 folds
+    host = preds["cpu"].predict_proba(vols)
+    np.testing.assert_allclose(card, host, rtol=0, atol=1e-2)
+    for dev, pred in preds.items():
+        qp = tq8.export_int8(pred.folds[0].state_dict(), depth=10, shortcut_type="B")
+        xc = pred._prep(torch.from_numpy(cal).to(dev), True)
+        maxes = tq8.observe_maxes(qp, xc).cpu().numpy()
+        want = maxes / np.float32(127.0) + np.float32(1e-12)
+        got = pred.int8_folds[0].act_scales.cpu().numpy()
+        assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want), dev
+    net_c, net_h = preds["cuda"].int8_folds[0], preds["cpu"].int8_folds[0]
+    net_h.set_scales(net_c.act_scales.cpu())
+    x = torch.from_numpy(vols[:2, ..., None] / 200.0)
+    with torch.inference_mode():
+        h = net_c.stem(x.to(cuda))
+        taps_c, taps_h = [], []
+        out_c, _ = net_c.blocks_forward(h, taps=taps_c)
+        out_h, _ = net_h.blocks_forward(h.cpu(), taps=taps_h)
+    for a, b in zip(taps_c, taps_h):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(out_c.cpu(), out_h)

@@ -201,3 +201,32 @@ def test_predict_cli_volumes_and_evaluate(folds, ckpt_dir, tmp_path):
                                   for i, p in enumerate(paths)])
     assert set(res) == {"AUC", "ACC"} and 0.0 <= res["ACC"] <= 1.0
     json.dumps(res)
+    # numpy metrics, equal to sklearn's
+    from sklearn.metrics import accuracy_score, roc_auc_score
+
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+
+    y = [i % 2 for i in range(3)]
+    proba = pred.predict_proba(np.stack([load_volume(p) for p in paths]))
+    assert res["AUC"] == pytest.approx(roc_auc_score(y, proba[:, 1]), abs=1e-12)
+    assert res["ACC"] == accuracy_score(y, (proba[:, 1] > 0.5).astype(int))
+
+
+def test_evaluate_records_multiclass_equals_sklearn(tmp_path):
+    """Three classes: the macro one-vs-rest AUC and the argmax ACC, as
+    sklearn's roc_auc_score(multi_class="ovr") and accuracy_score."""
+    from sklearn.metrics import accuracy_score, roc_auc_score
+
+    vols = _volumes(9, seed=10)
+    records = []
+    for i, v in enumerate(vols):
+        records.append({"MRI": str(tmp_path / f"m{i}.nii"), "label": i % 3})
+        nifti_save(records[-1]["MRI"], v * (1 + i % 3))
+    model = generate_model(model_depth=10, nb_class=3, compute_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(5))
+    pred = EnsemblePredictor(model, [model.state_dict()], batch_size=4, device="cpu")
+    res = evaluate_records(pred, records)
+    y = np.arange(9) % 3
+    proba = pred.predict_proba(vols * (1 + y)[:, None, None, None])
+    assert res["AUC"] == pytest.approx(roc_auc_score(y, proba, multi_class="ovr"), abs=1e-12)
+    assert res["ACC"] == accuracy_score(y, proba.argmax(1))

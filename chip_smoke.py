@@ -78,10 +78,13 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    phase 7's untrained network's; the JAX package's small recipe (best
    validation MSE < 0.05);
 11. int8 serving: K3 (csrc/int8_conv.cu) against its plain version
-   (float64 convolution + the plain epilogues), bit-equal in all three
-   epilogues at the ten distinct block-conv shapes of the flagship at
-   B = 8, at a depth-50 Bottleneck set at B = 2 and at odd sizes; its
-   time (as K1's) beside its bound, `torch._int_mm` on a pre-built im2col
+   (float64 convolution + the plain epilogues), bit-equal in all four
+   epilogues (the block output with a bf16 and a float32 residual, with
+   and without the next quant point) at the ten distinct block-conv shapes
+   of the flagship at B = 8, at a depth-50 Bottleneck set at B = 2 and at
+   odd sizes; its time in each epilogue the path runs on a shape (as
+   K1's) beside its bound, the share of the dense taps its tiles execute
+   and the share inside the volume, `torch._int_mm` on a pre-built im2col
    matrix of the same GEMM (int32-equal to K3), the bf16 cuDNN
    convolution of the same shape and the plain version; then phase 4's
    five folds through `EnsemblePredictor.quantize_int8` -> `predict_proba`
@@ -92,7 +95,8 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    bit-equal), resident int8 and bf16 vols/s at B = 8 and 32 and
    `predict_proba` vols/s, the s2d bf16 stem's time against the fp32 7^3
    stem's, a profile of one int8 batch split into K3, stem, quantize and
-   elementwise, max pool; and phase 8's trained folds quantized with
+   elementwise, max pool, with the device kernels each launches a fold;
+   and phase 8's trained folds quantized with
    training volumes: `evaluate_records` AUC of int8 within 0.01 of bf16
    over the 8 test subjects and 40 more held-out subjects of phase 8's
    generator (the test subjects' AUC is printed too);
@@ -135,18 +139,26 @@ K3_REPLACES = "multimodal_ad_tpu/models/resnet3d_int8.py:131"
 K3_SOURCE = "multimodal_ad_tpu_torch/csrc/int8_conv.cu"
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, int8 dense tensor-core rate
 # K3 at the flagship's block convs, B = 8 (name, input grid, C_in, C_out,
-# kernel, stride, dilation, launches a forward, the path's epilogue)
+# kernel, stride, dilation, and the epilogues the path runs on the shape
+# with their launches a forward: "int8" a block's first conv, "float32" its
+# shortcut conv, "block_out bf16" / "block_out f32" its last conv with the
+# identity's or the shortcut's residual; "last": the last block, which
+# writes no next quant point)
 K3_SHAPES = [
-    ("stage 1, 3^3, 64->64", (23, 28, 23), 64, 64, 3, 1, 1, 4, "float32"),
-    ("stage 2 b0 conv1, 3^3/2, 64->128", (23, 28, 23), 64, 128, 3, 2, 1, 1, "int8"),
-    ("stage 2 down, 1^3/2, 64->128", (23, 28, 23), 64, 128, 1, 2, 1, 1, "float32"),
-    ("stage 2, 3^3, 128->128", (12, 14, 12), 128, 128, 3, 1, 1, 3, "float32"),
-    ("stage 3 b0 conv1, 3^3 d2, 128->256", (12, 14, 12), 128, 256, 3, 1, 2, 1, "int8"),
-    ("stage 3 down, 1^3, 128->256", (12, 14, 12), 128, 256, 1, 1, 1, 1, "float32"),
-    ("stage 3, 3^3 d2, 256->256", (12, 14, 12), 256, 256, 3, 1, 2, 3, "float32"),
-    ("stage 4 b0 conv1, 3^3 d4, 256->512", (12, 14, 12), 256, 512, 3, 1, 4, 1, "int8"),
-    ("stage 4 down, 1^3, 256->512", (12, 14, 12), 256, 512, 1, 1, 1, 1, "float32"),
-    ("stage 4, 3^3 d4, 512->512", (12, 14, 12), 512, 512, 3, 1, 4, 3, "float32"),
+    ("stage 1, 3^3, 64->64", (23, 28, 23), 64, 64, 3, 1, 1,
+     (("int8", 2), ("block_out bf16", 2))),
+    ("stage 2 b0 conv1, 3^3/2, 64->128", (23, 28, 23), 64, 128, 3, 2, 1, (("int8", 1),)),
+    ("stage 2 down, 1^3/2, 64->128", (23, 28, 23), 64, 128, 1, 2, 1, (("float32", 1),)),
+    ("stage 2, 3^3, 128->128", (12, 14, 12), 128, 128, 3, 1, 1,
+     (("int8", 1), ("block_out f32", 1), ("block_out bf16", 1))),
+    ("stage 3 b0 conv1, 3^3 d2, 128->256", (12, 14, 12), 128, 256, 3, 1, 2, (("int8", 1),)),
+    ("stage 3 down, 1^3, 128->256", (12, 14, 12), 128, 256, 1, 1, 1, (("float32", 1),)),
+    ("stage 3, 3^3 d2, 256->256", (12, 14, 12), 256, 256, 3, 1, 2,
+     (("int8", 1), ("block_out f32", 1), ("block_out bf16", 1))),
+    ("stage 4 b0 conv1, 3^3 d4, 256->512", (12, 14, 12), 256, 512, 3, 1, 4, (("int8", 1),)),
+    ("stage 4 down, 1^3, 256->512", (12, 14, 12), 256, 512, 1, 1, 1, (("float32", 1),)),
+    ("stage 4, 3^3 d4, 512->512", (12, 14, 12), 512, 512, 3, 1, 4,
+     (("int8", 1), ("block_out f32", 1), ("block_out bf16 last", 1))),
 ]
 # a depth-50 Bottleneck set at B = 2 on reduced grids, and odd sizes
 K3_EXTRA = [
@@ -630,10 +642,23 @@ def k3_work(batch, grid, c_in, c_out, ksize, stride, dil):
     return 2.0 * batch * pairs * c_in * c_out, batch * read * c_in
 
 
+def k3_epilogue(spec):
+    """(epilogue, residual dtype name or None, writes the next quant point,
+    bytes the epilogue moves per (M, N) element) of a K3_SHAPES entry: the
+    output written, and for the block output the residual read and the
+    bf16 h plus, unless it is the last block, the int8 quant point."""
+    parts = spec.split()
+    epi, res = parts[0], (parts[1] if len(parts) > 1 else None)
+    if epi != "block_out":
+        return epi, None, epi == "int8", {"int32": 4, "int8": 1, "float32": 4}[epi]
+    q = "last" not in parts
+    return epi, res, q, {"bf16": 2, "f32": 4}[res] + 2 + (1 if q else 0)
+
+
 def k3_bound_ms(ops, in_bytes, m, n, k, out_bytes):
     """Least time for K3's work: the input voxels it needs, the weights and
-    the epilogue vectors read once, the (M, N) output written once; or
-    `ops` (k3_work) at the int8 dense rate."""
+    the epilogue vectors read once, `out_bytes` (k3_epilogue) moved per
+    (M, N) element; or `ops` (k3_work) at the int8 dense rate."""
     moved = in_bytes + n * k + 8 * n + m * n * out_bytes
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -699,33 +724,53 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
     max_err = [0.0]  # the largest |K3 - plain| over every comparison
 
     def check_k3(name, batch, grid, c_in, c_out, ksize, stride, dil):
-        """K3 against the plain version in all three epilogues: bit-equal."""
+        """K3 against the plain version in every epilogue, the block output
+        with a bf16 and a float32 residual, with and without the next
+        quant point: bit-equal."""
         x, w, kv, bv = operands(batch, grid, c_in, c_out, ksize)
         acc = k3.conv_i8_plain(x, w, stride, dil)
-        for epi in ("int32", "int8", "float32"):
-            got = k3.conv_i8(x, w, stride, dil, epi, kv, bv, 0.05)
-            ref = k3.epilogue_plain(acc, epi, kv, bv, 0.05)
+        r = torch.randn(acc.shape, generator=g, device=dev) * 2
+        cases = [(epi, None, 0.05) for epi in ("int32", "int8", "float32")]
+        cases += [("block_out", res, s_next) for res in (r.to(torch.bfloat16), r)
+                  for s_next in (0.05, None)]
+        for epi, res, s_next in cases:
+            got = k3.conv_i8(x, w, stride, dil, epi, kv, bv, s_next, res)
+            ref = k3.epilogue_plain(acc, epi, kv, bv, s_next, res)
+            if epi == "block_out":
+                check((got[1] is None) == (s_next is None), f"K3 {name}: block_out's hq")
+                got = torch.cat([got[0].float().flatten()]
+                                + ([got[1].float().flatten()] if s_next else []))
+                ref = torch.cat([ref[0].float().flatten()]
+                                + ([ref[1].float().flatten()] if s_next else []))
             err = float((got.double() - ref.double()).abs().max())
             max_err[0] = max(max_err[0], err)
             check(got.dtype == ref.dtype and torch.equal(got, ref),
-                  f"K3 {name} ({epi}) differs from its plain version by {err}")
+                  f"K3 {name} ({epi}, residual "
+                  f"{None if res is None else res.dtype}, s_next {s_next}) differs from its "
+                  f"plain version by {err}")
+        del r
         return x, w, kv, bv, acc
 
     k3.conv_i8.launches = 0
     t0 = time.time()
     for name, batch, grid, c_in, c_out, ksize, stride, dil in K3_EXTRA:
         check_k3(name, batch, grid, c_in, c_out, ksize, stride, dil)
-    log(f"K3 bit-equal to its plain version in the int32, int8 and float32 epilogues at "
+    log(f"K3 bit-equal to its plain version in the int32, int8, float32 and block_out "
+        f"(bf16 and float32 residual, with and without the next quant point) epilogues at "
         f"{len(K3_EXTRA)} depth-50 / odd shapes ({time.time() - t0:.1f} s)")
 
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
     rows, forward = [], {"ops": 0.0, "ms": 0.0, "bound_ms": 0.0, "int_mm_ms": 0.0,
                          "cudnn_bf16_ms": 0.0, "plain_ms": 0.0}
-    log(f"K3 at the flagship's block convs, B = {BATCH} (CUDA events, L2 flushed and a device "
-        f"spin before each launch, median of 25; plain version 10):")
-    for name, grid, c_in, c_out, ksize, stride, dil, per_fwd, epi in K3_SHAPES:
+    log(f"K3 at the flagship's block convs, B = {BATCH}, in the epilogues the path runs "
+        f"(CUDA events, L2 flushed and a device spin before each launch, median of 25; plain "
+        f"version 10; taps: executed / inside the volume, shares of the dense (row, tap) "
+        f"pairs):")
+    for name, grid, c_in, c_out, ksize, stride, dil, epilogues in K3_SHAPES:
         x, w, kv, bv, acc = check_k3(name, BATCH, grid, c_in, c_out, ksize, stride, dil)
         m, n, kk = acc[..., 0].numel(), c_out, ksize ** 3 * c_in
+        plan = k3.tile_plan(tuple(x.shape), tuple(w.shape), stride, dil,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
         a_mat = im2col(torch, x, ksize, stride, dil)
         b_mat = w.reshape(c_out, kk).t()
         lib_out = torch._int_mm(a_mat, b_mat)
@@ -735,28 +780,39 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
         w16 = w.to(torch.bfloat16).permute(0, 4, 1, 2, 3).contiguous(
             memory_format=torch.channels_last_3d)
         pad = dil * (ksize - 1) // 2
-        ms = time_cuda(torch, lambda: k3.conv_i8(x, w, stride, dil, epi, kv, bv, 0.05),
-                       flush=flush)
         lib_ms = time_cuda(torch, lambda: torch._int_mm(a_mat, b_mat), flush=flush)
         bf16_ms = time_cuda(torch, lambda: torch.nn.functional.conv3d(
             x16, w16, stride=stride, padding=pad, dilation=dil), flush=flush)
-        plain_ms = time_cuda(torch, lambda: k3.epilogue_plain(
-            k3.conv_i8_plain(x, w, stride, dil), epi, kv, bv, 0.05), reps=10, flush=flush)
-        out_bytes = {"int8": 1, "float32": 4}[epi]
         ops, in_bytes = k3_work(BATCH, grid, c_in, c_out, ksize, stride, dil)
-        bound, bound_by = k3_bound_ms(ops, in_bytes, m, n, kk, out_bytes)
-        rows.append({"shape": name, "M": m, "N": n, "K": kk, "epilogue": epi,
-                     "per_forward": per_fwd, "ops": ops, "dense_ops": 2.0 * m * n * kk,
-                     "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-                     "int_mm_ms": lib_ms, "cudnn_bf16_ms": bf16_ms, "plain_ms": plain_ms,
-                     "tops": ops / (ms * 1e9)})
-        for key in ("ops", "ms", "bound_ms", "int_mm_ms", "cudnn_bf16_ms", "plain_ms"):
-            forward[key] += per_fwd * rows[-1][key]
-        log(f"  {name:36s} x{per_fwd} M {m:6d} N {n:3d} K {kk:5d} {epi:7s} K3 {ms:.4f} ms "
-            f"({rows[-1]['tops']:.0f} TOP/s in-volume, {ops / (2.0 * m * n * kk):.1%} of "
-            f"the dense taps) bound {bound:.4f} ({bound_by}) -> "
-            f"{bound / ms:.1%}; _int_mm {lib_ms:.4f}; bf16 cuDNN {bf16_ms:.4f}; plain "
-            f"{plain_ms:.3f}")
+        inside = ops / (2.0 * m * n * kk)  # the in-volume share of the dense pairs
+        for spec, per_fwd in epilogues:
+            epi, res_name, with_q, moved = k3_epilogue(spec)
+            res = None
+            if res_name is not None:
+                res = torch.randn(acc.shape, generator=g, device=dev)
+                res = res.to(torch.bfloat16) if res_name == "bf16" else res
+            s_next = 0.05 if with_q else None
+            ms = time_cuda(torch, lambda: k3.conv_i8(x, w, stride, dil, epi, kv, bv, s_next,
+                                                     res), flush=flush)
+            plain_ms = time_cuda(torch, lambda: k3.epilogue_plain(
+                k3.conv_i8_plain(x, w, stride, dil), epi, kv, bv, s_next, res), reps=10,
+                flush=flush)
+            bound, bound_by = k3_bound_ms(ops, in_bytes, m, n, kk, moved)
+            rows.append({"shape": name, "M": m, "N": n, "K": kk, "epilogue": spec,
+                         "per_forward": per_fwd, "ops": ops, "dense_ops": 2.0 * m * n * kk,
+                         "executed_taps": plan.executed_taps, "in_volume_taps": inside,
+                         "bn": plan.bn, "box": plan.box,
+                         "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                         "int_mm_ms": lib_ms, "cudnn_bf16_ms": bf16_ms, "plain_ms": plain_ms,
+                         "tops": ops / (ms * 1e9)})
+            for key in ("ops", "ms", "bound_ms", "int_mm_ms", "cudnn_bf16_ms", "plain_ms"):
+                forward[key] += per_fwd * rows[-1][key]
+            log(f"  {name:36s} x{per_fwd} {spec:19s} M {m:6d} N {n:3d} K {kk:5d} K3 {ms:.4f} ms "
+                f"({rows[-1]['tops']:.0f} TOP/s in-volume; taps {plan.executed_taps:.3f} / "
+                f"{inside:.3f}; BN {plan.bn}, box {plan.box}) bound {bound:.4f} ({bound_by}) -> "
+                f"{bound / ms:.1%}; _int_mm {lib_ms:.4f}; bf16 cuDNN {bf16_ms:.4f}; plain "
+                f"{plain_ms:.3f}")
+            del res
         del x, w, acc, a_mat, b_mat, x16, w16
     out["k3_shapes"] = rows
     out["k3_forward"] = forward
@@ -767,6 +823,7 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
         f"{forward['bound_ms']:.3f} ({forward['bound_ms'] / forward['ms']:.1%}), _int_mm "
         f"{forward['int_mm_ms']:.3f}, bf16 cuDNN "
         f"{forward['cudnn_bf16_ms']:.3f}, plain {forward['plain_ms']:.2f} ms")
+    check(sum(per for *_, eps in K3_SHAPES for _, per in eps) == 19, "K3_SHAPES' launches")
     torch.cuda.empty_cache()
 
     # ---- the main path: quantize_int8 -> predict_proba ----------------------
@@ -894,21 +951,25 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
         pred8.forward(x8)
         torch.cuda.synchronize()
     split = {"K3": 0.0, "stem conv": 0.0, "max pool": 0.0, "quantize and elementwise": 0.0}
+    launched = {k: 0 for k in split}
     for e in prof.key_averages():
         key = e.key.lower()
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
         us = device_us(e)
-        if "conv_i8" in key:
-            split["K3"] += us
-        elif "max_pool" in key or "maxpool" in key:
-            split["max pool"] += us
-        elif any(t in key for t in ("conv", "xmma", "fprop", "cudnn", "implicit", "gemm")):
-            split["stem conv"] += us
-        else:
-            split["quantize and elementwise"] += us
+        kind = ("K3" if "conv_i8" in key else "max pool" if "max_pool" in key or "maxpool" in key
+                else "stem conv" if any(t in key for t in ("conv", "xmma", "fprop", "cudnn",
+                                                           "implicit", "gemm"))
+                else "quantize and elementwise")
+        launched[kind] += e.count
+        split[kind] += us
     total = sum(split.values())
     out["profile_us"] = split
+    out["profile_kernels_per_fold"] = {k: v / N_FOLDS for k, v in launched.items()}
     log(f"profile of one int8 batch of {BATCH} (5 folds; device time {total / 1e3:.3f} ms): "
         + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / max(total, 1e-9):.1%})" for k, v in split.items()))
+    log(f"device kernels launched a fold: {sum(launched.values()) / N_FOLDS:.1f} ("
+        + ", ".join(f"{k} {v / N_FOLDS:.1f}" for k, v in launched.items()) + ")")
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
                                   max_name_column_width=60))
     del ds, x8, pred16, pred8, flush
@@ -1696,7 +1757,7 @@ def main() -> int:
 
     # ---- 12. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
-    k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512: the largest bound
+    k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
         "name": "fused_gather_normalize",
         "route": "cuda",
@@ -1769,9 +1830,11 @@ def main() -> int:
         "library_call": "torch._int_mm on a pre-built im2col (M, K) int8 matrix",
         "cudnn_bf16_ms": k3_top["cudnn_bf16_ms"],
         "shape": f"{k3_top['shape']}, B={BATCH}, {k3_top['epilogue']} epilogue",
+        "executed_taps": k3_top["executed_taps"],
+        "in_volume_taps": k3_top["in_volume_taps"],
         "forward_19_convs": q8["k3_forward"],
         "per_shape": q8["k3_shapes"],
-        "design_pr": 6,
+        "design_pr": 7,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},

@@ -13,14 +13,16 @@ an int8 inference graph:
   points `block_scale_keys` names;
 - each block conv runs int8 x int8 -> int32 in K3 (ops/int8_conv.py, a
   CUDA kernel on the card), with the dequant, folded bias, ReLU and next
-  quant point in its epilogue;
+  quant point in its epilogue, and a block's last conv also adds the
+  residual, applies the ReLU and the bf16 cast and writes the next block's
+  input quant point (K3's block_out epilogue);
 - the stem and the classifier head stay bf16 / float32: the stem is the
   TPU package's space-to-depth form (the 7^3 stride-2 conv as a dense 4^3
   stride-1 conv over the 2^3 phases packed on the channel axis), run as a
   bf16 F.conv3d, then the folded BN affine, ReLU and the 3^3 stride-2 max
   pool;
-- residual adds happen in float32 between blocks, and each block's output
-  is cast to bf16.
+- residual adds happen in float32 (in that epilogue), and each block's
+  output is cast to bf16.
 
 Export (`export_int8`) runs in numpy float32 with the TPU package's
 operations in its order (multiply, sqrt, max, division, round half to
@@ -278,10 +280,10 @@ class ResNet3DInt8(nn.Module):
         o = F.max_pool3d(o.permute(0, 4, 1, 2, 3), 3, 2, 1)
         return o.permute(0, 2, 3, 4, 1).contiguous()
 
-    def _qconv(self, inp, i, name, stride, dil, epilogue, s_next=None):
+    def _qconv(self, inp, i, name, stride, dil, epilogue, s_next=None, residual=None):
         return conv_i8(inp, getattr(self, f"b{i}_{name}_wq"), stride, dil, epilogue,
                        getattr(self, f"b{i}_{name}_k"), getattr(self, f"b{i}_{name}_b"),
-                       s_next)
+                       s_next, residual)
 
     def _fconv(self, inp, i, name, stride, dil):
         """Folded fp conv: bf16 F.conv3d, then + b in float32."""
@@ -299,12 +301,17 @@ class ResNet3DInt8(nn.Module):
                        taps: list | None = None):
         """The blocks from the stem's bf16 output -> (bf16 layer4 map, list
         of observed max|h| per quant point). quantized=False runs the folded
-        fp graph. `taps`, when given, collects each int8 quant point."""
+        fp graph. `taps`, when given, collects each int8 quant point.
+
+        int8: a block's last conv runs K3's block_out epilogue, which adds
+        the residual (the bf16 identity, or the float32 shortcut, computed
+        first), applies the ReLU and the bf16 cast, and writes the next
+        block's input quant point beside the block's output."""
         if quantized and self.act_scales is None:
             raise RuntimeError("set_scales (or calibrate) before the int8 forward")
         sc, st = self._scales_host, self.act_scales
         pos = {k: j for j, k in enumerate(self.scale_keys)}
-        maxes = []
+        maxes, hq = [], None
         for i, blk in enumerate(self.blocks):
             stride, dil = blk["stride"], blk["dilation"]
             bneck = blk["kind"] == "bottleneck"
@@ -312,36 +319,42 @@ class ResNet3DInt8(nn.Module):
                 maxes.append(h.float().abs().amax())
             if quantized:
                 s_in, s_mid = f"b{i}_in", f"b{i}_mid"
-                hq = quantize(h, st[pos[s_in]])
+                if hq is None:  # the first block; later ones get it from block_out
+                    hq = quantize(h, st[pos[s_in]])
+                if blk["down"] is None:
+                    r = h
+                elif blk["down"] == "A":
+                    r = _shortcut_a(h.float(), blk["planes"], stride).contiguous()
+                else:
+                    r = self._qconv(hq, i, "down", stride, 1, "float32")
+                s_out = sc[f"b{i + 1}_in"] if i + 1 < len(self.blocks) else None
                 if bneck:
                     aq = self._qconv(hq, i, "conv1", 1, 1, "int8", sc[s_mid])
                     a2q = self._qconv(aq, i, "conv2", stride, dil, "int8", sc[f"b{i}_mid2"])
-                    o = self._qconv(a2q, i, "conv3", 1, 1, "float32")
                     points = (hq, aq, a2q)
+                    h, hq = self._qconv(a2q, i, "conv3", 1, 1, "block_out", s_out, r)
                 else:
                     aq = self._qconv(hq, i, "conv1", stride, dil, "int8", sc[s_mid])
-                    o = self._qconv(aq, i, "conv2", 1, dil, "float32")
                     points = (hq, aq)
+                    h, hq = self._qconv(aq, i, "conv2", 1, dil, "block_out", s_out, r)
                 if taps is not None:
                     taps.extend(points)
-            else:
-                c1 = (1, 1) if bneck else (stride, dil)
-                a = torch.relu(self._fconv(h, i, "conv1", *c1))
+                continue
+            c1 = (1, 1) if bneck else (stride, dil)
+            a = torch.relu(self._fconv(h, i, "conv1", *c1))
+            if observe:
+                maxes.append(a.abs().amax())
+            if bneck:
+                a2 = torch.relu(self._fconv(a, i, "conv2", stride, dil))
                 if observe:
-                    maxes.append(a.abs().amax())
-                if bneck:
-                    a2 = torch.relu(self._fconv(a, i, "conv2", stride, dil))
-                    if observe:
-                        maxes.append(a2.abs().amax())
-                    o = self._fconv(a2, i, "conv3", 1, 1)
-                else:
-                    o = self._fconv(a, i, "conv2", 1, dil)
+                    maxes.append(a2.abs().amax())
+                o = self._fconv(a2, i, "conv3", 1, 1)
+            else:
+                o = self._fconv(a, i, "conv2", 1, dil)
             if blk["down"] is None:
                 r = h.float()
             elif blk["down"] == "A":
                 r = _shortcut_a(h.float(), blk["planes"], stride)
-            elif quantized:
-                r = self._qconv(hq, i, "down", stride, 1, "float32")
             else:
                 r = self._fconv(h, i, "down", stride, 1)
             h = torch.relu(o + r).to(torch.bfloat16)

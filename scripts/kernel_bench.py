@@ -1,9 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's two CUDA kernels, K1 (gather + min-max normalize) and
-K2 (atlas ROI pooling), on one NVIDIA GPU at the shapes the main paths
-give them, beside their bounds and a library yardstick.
+"""Time the port's CUDA kernels, K1 (gather + min-max normalize), K2
+(atlas ROI pooling) and K3 (int8 conv), on one NVIDIA GPU at the shapes
+the main paths give them, beside their bounds and a library yardstick.
 
     python3 scripts/kernel_bench.py [--pkg-root DIR] [--label NAME] [--reps N]
+                                    [--only k1,k2,k3] [--k3-variants]
+
+K3 runs the flagship's ten block-conv shapes of `chip_smoke.py::K3_SHAPES`
+at B = 8, each in the epilogues the int8 path runs on it, and sums a
+forward's 19 convs; a package without the block-output epilogue (before
+it existed) runs its own main-path epilogue there, float32.
+
+`--k3-variants` (this checkout only) also times, under the same public
+`conv_i8`, copies of K3's source with a few lines replaced, built with the
+port's nvcc flags into the gitignored multimodal_ad_tpu_torch/build/
+variants/: where K3's time goes. `cp_async_a` gathers the activations
+with cp.async instead of TMA and `no_sw64` takes C_in = 64 without the
+64-byte-swizzle path (both checked bit-equal to the plain version);
+`mul_for_div`, `no_epilogue` and `no_copies` replace the quant point's
+division by a multiply, leave out the epilogue, leave out every copy
+(timing only: their results are wrong). A replaced line that is no
+longer in the source stops the run.
 
 `--pkg-root` names the directory that holds the `multimodal_ad_tpu_torch`
 package to time (default: this checkout), so one run on the card can
@@ -32,18 +49,25 @@ def main(argv=None) -> int:
     ap.add_argument("--pkg-root", default=ROOT)
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=25)
+    ap.add_argument("--only", default="k1,k2,k3", help="comma-separated kernels to time")
+    ap.add_argument("--k3-variants", action="store_true",
+                    help="also time patched copies of K3's source (this checkout only)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if args.k3_variants and os.path.abspath(args.pkg_root) != ROOT:
+        ap.error("--k3-variants patches this checkout's source: leave --pkg-root out")
 
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs  # this checkout's helpers and shapes, whatever --pkg-root holds
     sys.path.insert(0, os.path.abspath(args.pkg_root))
-    sys.path.insert(1, ROOT)  # chip_smoke's helpers
-    import chip_smoke as cs
     from multimodal_ad_tpu_torch.data.synthetic import make_atlas
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
     from multimodal_ad_tpu_torch.ops import roi_pool as rp
 
     card = subprocess.run(
@@ -52,7 +76,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
     res = {"label": args.label, "pkg": os.path.abspath(args.pkg_root), "card": card,
-           "k1": {}, "k2": {}}
+           "k1": {}, "k2": {}, "k3": {}}
 
     def timed(fn):
         return cs.time_cuda(torch, fn, reps=args.reps, flush=flush)
@@ -68,7 +92,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return 1e6 * t / n
 
-    # ---- K1 ----
+    if "k1" in only:
+        k1_bench(torch, cs, fg, dev, timed, host_us, res)
+    if "k2" in only:
+        k2_bench(torch, cs, rp, make_atlas, dev, timed, host_us, res)
+    if "k3" in only:
+        variants = {}
+        if args.k3_variants:
+            from multimodal_ad_tpu_torch.ops import _build
+            variants = build_k3_variants(_build)
+        k3_bench(torch, cs, k3, dev, timed, res, variants)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def k1_bench(torch, cs, fg, dev, timed, host_us, res):
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     shape = (cs.N_CORPUS, *cs.VOL_SHAPE, 1)
     u8 = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
@@ -108,9 +146,9 @@ def main(argv=None) -> int:
     res["k1"]["empty_launch_ms"] = empty_ms
     print(f"library copy of one f32 batch of 8 (the f32->f32 bytes) {copy_ms:.4f} ms; "
           f"empty launch {empty_ms:.4f} ms", flush=True)
-    del u8, f32, batch8, dst
 
-    # ---- K2 ----
+
+def k2_bench(torch, cs, rp, make_atlas, dev, timed, host_us, res):
     labels = make_atlas(cs.VOL_SHAPE, n_rois=cs.N_ROIS, seed=cs.SEED)
     labels[labels == 100] = 0  # as chip_smoke.py phase 6
     atlas = rp.RoiAtlas.build(labels, cs.N_ROIS, dev)
@@ -153,8 +191,130 @@ def main(argv=None) -> int:
                               "runs": int(a.runs.shape[0])}
             print(f"K2 plan {key}: T {a.tile_size}, {a.num_tiles} tiles, "
                   f"{a.runs.shape[0]} runs", flush=True)
-    print(json.dumps(res), flush=True)
-    return 0
+
+
+_NO_COPIES = [("if (s + kStages - 2 < steps) load(", "if (false) load("),
+              ("if (s < steps) load(s);", "if (false) load(s);"),
+              ("    if (p.b_tma) mbar_wait(", "    if (false) mbar_wait(")]
+# name: (the source's lines and their replacements, bit-equal to the plain version)
+K3_VARIANTS = {
+    "cp_async_a": ([("  p.a_tma = p.b_tma && stride == 1 && td > 0;", "  p.a_tma = 0;")], True),
+    "no_sw64": ([("  p.sw64 = C == 64;", "  p.sw64 = 0;")], True),
+    "mul_for_div": ([("rintf(__fdiv_rn(h, s_next))", "rintf(__fmul_rn(h, s_next))")], False),
+    "no_epilogue": ([("  // Epilogue, in two passes",
+                      "  if (p.N > 0) return;\n  // Epilogue, in two passes")], False),
+    "no_copies": (_NO_COPIES, False),
+}
+
+
+def build_k3_variants(_build) -> dict:
+    """Compile every K3 variant (one nvcc each, in parallel) -> {name: (CDLL, bit_equal)}."""
+    import ctypes
+
+    src = (_build.CSRC / "int8_conv.cu").read_text()
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (edits, _) in K3_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old.strip()!r} is no longer in the source")
+            text = text.replace(old, new)
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        jobs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        libs[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), K3_VARIANTS[name][1])
+    return libs
+
+
+def k3_bench(torch, cs, k3, dev, timed, res, variants=None):
+    """K3 at the flagship's shapes; `variants` ({name: (CDLL, bit_equal)}) are
+    swapped in under `conv_i8` and timed beside it on the same inputs."""
+    variants = variants or {}
+    if variants:
+        from multimodal_ad_tpu_torch.ops import _build
+        kernel = _build.load("int8_conv")
+
+        def use(lib):
+            _build._loaded["int8_conv"] = lib
+            k3._lib()  # declares the C signature on first use
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 50)
+    has_block_out = "block_out" in k3.EPILOGUES
+    total = {"ms": 0.0, "bound_ms": 0.0, "int_mm_ms": 0.0}
+    total_variants = dict.fromkeys(variants, 0.0)
+    for name, grid, c_in, c_out, ksize, stride, dil, epilogues in cs.K3_SHAPES:
+        x = torch.randint(-127, 128, (cs.BATCH, *grid, c_in), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (c_out, ksize, ksize, ksize, c_in), generator=g,
+                          device=dev, dtype=torch.int8)
+        kv = torch.rand(c_out, generator=g, device=dev) * 2e-5 + 1e-6
+        bv = torch.randn(c_out, generator=g, device=dev) * 0.5
+        kk = ksize ** 3 * c_in
+        a_mat, b_mat = cs.im2col(torch, x, ksize, stride, dil), w.reshape(c_out, kk).t()
+        m = a_mat.shape[0]
+        lib_ms = timed(lambda: torch._int_mm(a_mat, b_mat))
+        ops, in_bytes = cs.k3_work(cs.BATCH, grid, c_in, c_out, ksize, stride, dil)
+        plan = (k3.tile_plan(tuple(x.shape), tuple(w.shape), stride, dil)
+                if hasattr(k3, "tile_plan") else None)
+        acc = k3.conv_i8_plain(x, w, stride, dil) if variants else None
+        for spec, per_fwd in epilogues:
+            epi, res_name, with_q, moved = cs.k3_epilogue(spec)
+            r = None
+            if epi == "block_out" and has_block_out:
+                r = torch.randn(k3._out_shape(x.shape, w.shape, stride, dil), generator=g,
+                                device=dev)
+                r = r.to(torch.bfloat16) if res_name == "bf16" else r
+                args = (epi, kv, bv, 0.05 if with_q else None, r)
+            elif epi == "block_out":  # the package's own main path: float32 out
+                epi, moved = "float32", 4
+                args = (epi, kv, bv, None)
+            else:
+                args = (epi, kv, bv, 0.05)
+            ms = timed(lambda: k3.conv_i8(x, w, stride, dil, *args))
+            bound, by = cs.k3_bound_ms(ops, in_bytes, m, c_out, kk, moved)
+            row = {"ms": ms, "bound_ms": bound, "bound_by": by, "int_mm_ms": lib_ms,
+                   "per_forward": per_fwd, "epilogue_run": epi,
+                   "executed_taps": plan.executed_taps if plan else None}
+            res["k3"][f"{name} | {spec}"] = row
+            for key in total:
+                total[key] += per_fwd * row[key]
+            print(f"K3 {name:36s} x{per_fwd} {spec:19s} ({epi:9s}) {ms:.4f} ms  bound "
+                  f"{bound:.4f} ms ({by}) -> {bound / ms:.1%}; _int_mm {lib_ms:.4f}"
+                  + (f"; taps executed {plan.executed_taps:.3f}" if plan else ""), flush=True)
+            if variants:
+                ref = k3.epilogue_plain(acc, *args)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                row["variants_ms"] = {}
+                for vname, (lib, exact) in variants.items():
+                    use(lib)
+                    if exact:
+                        got = k3.conv_i8(x, w, stride, dil, *args)
+                        got = got if isinstance(got, tuple) else (got,)
+                        if not all(torch.equal(a, b) for a, b in zip(got, ref) if a is not None):
+                            raise RuntimeError(f"variant {vname} differs from the plain version "
+                                               f"at {name} ({spec})")
+                    row["variants_ms"][vname] = timed(lambda: k3.conv_i8(x, w, stride, dil, *args))
+                    total_variants[vname] += per_fwd * row["variants_ms"][vname]
+                use(kernel)
+                print("   variants " + " ".join(f"{v} {t:.4f}" for v, t in
+                                                row["variants_ms"].items()), flush=True)
+            del r
+        del x, w, a_mat, b_mat, acc
+    res["k3"]["forward"] = total
+    print(f"K3 the 19 block convs of a forward: {total['ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f}, _int_mm {total['int_mm_ms']:.3f}", flush=True)
+    if variants:
+        res["k3"]["forward_variants_ms"] = total_variants
+        print("K3 variants, the 19 block convs of a forward (ms): "
+              + ", ".join(f"{v} {t:.3f}" for v, t in total_variants.items()), flush=True)
 
 
 if __name__ == "__main__":

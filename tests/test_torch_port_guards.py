@@ -1,10 +1,13 @@
 """Guards of the port: it imports without JAX or the JAX package, names
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
 kernels K1, K2 and K3 agree with their plain versions on a card (those
-tests carry the `cuda` marker and skip where there is none), as do three
-fp32 train steps of the ResNet and of the U-Net classifier, the training
-epoch iterator, the host-planned augmentation and the int8 ensemble. This
-file imports no JAX, so it also runs on the card's machine."""
+tests carry the `cuda` marker and skip where there is none; K3 in all its
+epilogues, the block output's included, on grids where whole tiles skip
+taps and at odd channel counts), as do three fp32 train steps of the
+ResNet and of the U-Net classifier, the training epoch iterator, the
+host-planned augmentation, the int8 ensemble and depth-34 and depth-50
+int8 folds. This file imports no JAX, so it also runs on the card's
+machine."""
 
 import os
 import pkgutil
@@ -694,6 +697,112 @@ def test_k3_rejects_what_it_does_not_take(cuda):
     before = tk3.conv_i8.launches
     assert tk3.conv_i8(x, w).shape == (1, 4, 4, 4, 8)
     assert tk3.conv_i8.launches == before + 1
+
+
+def _check_k3_all_epilogues(x, w, k, b, stride, dil):
+    """K3 on the card against its plain version in every epilogue, the
+    block output with a bf16 and a float32 residual, with and without the
+    next quant point: bit-equal, one launch a call."""
+    acc = tk3.conv_i8_plain(x, w, stride, dil)
+    for epilogue in ("int32", "int8", "float32"):
+        out = tk3.conv_i8(x, w, stride, dil, epilogue, k, b, 0.05)
+        assert torch.equal(out, tk3.epilogue_plain(acc, epilogue, k, b, 0.05)), epilogue
+    g = torch.Generator(device=x.device).manual_seed(acc.numel())
+    r = torch.randn(acc.shape, generator=g, device=x.device) * 2
+    for res in (r.to(torch.bfloat16), r):
+        for s_next in (0.05, None):
+            before = tk3.conv_i8.launches
+            h, hq = tk3.conv_i8(x, w, stride, dil, "block_out", k, b, s_next, res)
+            torch.cuda.synchronize()
+            assert tk3.conv_i8.launches == before + 1
+            ref_h, ref_q = tk3.epilogue_plain(acc, "block_out", k, b, s_next, res)
+            assert h.dtype == torch.bfloat16 and torch.equal(h, ref_h), (res.dtype, s_next)
+            assert (hq is None) == (s_next is None)
+            if s_next is not None:
+                assert hq.dtype == torch.int8 and torch.equal(hq, ref_q), res.dtype
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_out,ksize,stride,dil", [
+    ((2, 7, 9, 5, 32), 24, 3, 1, 1), ((1, 12, 14, 12, 64), 136, 3, 1, 4),
+    ((2, 7, 9, 5, 64), 136, 1, 2, 1)])
+def test_k3_block_out_matches_plain(cuda, shape, c_out, ksize, stride, dil):
+    x, w, k, b = (t.to(cuda) for t in _k3_inputs(shape, c_out, ksize, seed=sum(shape)))
+    _check_k3_all_epilogues(x, w, k, b, stride, dil)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_out,dil", [
+    ((2, 2, 3, 2, 64), 64, 4),      # one box: 1 of the 27 taps lands inside
+    ((2, 5, 14, 3, 128), 256, 4),   # boxes at the faces lose whole taps
+    ((2, 12, 14, 12, 64), 128, 4),  # boxes three d-planes deep
+])
+def test_k3_tiles_that_lose_taps(cuda, shape, c_out, dil):
+    """Grids where whole tiles skip taps (some tile of the plan needs fewer
+    than the 27) and where a tile's rows straddle d-planes."""
+    plan = tk3.tile_plan(shape, (c_out, 3, 3, 3, shape[-1]), 1, dil)
+    fewest = 1
+    for n, t in zip(shape[1:4], plan.box):
+        live = tk3._live_taps(n, 3, 1, dil)
+        fewest *= min(int(live[s:s + t].any(0).sum()) for s in range(0, live.shape[0], t))
+    assert fewest < 27
+    if shape[1] == 12:
+        assert plan.box[0] >= 2
+    x, w, k, b = (t.to(cuda) for t in _k3_inputs(shape, c_out, 3, seed=dil + shape[2]))
+    _check_k3_all_epilogues(x, w, k, b, 1, dil)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_out,ksize,stride", [
+    ((2, 6, 7, 6, 32), 40, 3, 1), ((3, 5, 7, 4, 96), 24, 3, 2), ((2, 6, 7, 6, 96), 136, 3, 1),
+    ((2, 6, 7, 6, 2048), 24, 1, 1), ((1, 3, 4, 3, 2048), 64, 3, 1),
+    ((2, 6, 7, 6, 64), 2048, 1, 1), ((2, 6, 7, 6, 512), 2048, 1, 2)])
+def test_k3_channel_counts(cuda, shape, c_out, ksize, stride):
+    """C_in 32, 96 and 2048 (chunks of a tap that straddle a stage), C_out
+    24, 40, 136 and 2048 (tiles of 64 or 256 channels, partly past N)."""
+    x, w, k, b = (t.to(cuda) for t in _k3_inputs(shape, c_out, ksize, seed=c_out + ksize))
+    _check_k3_all_epilogues(x, w, k, b, stride, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [34, 50])
+def test_int8_fold_on_the_card_matches_the_host(cuda, depth):
+    """One depth-34 (BasicBlock) or depth-50 (Bottleneck) int8 fold, the
+    same export and scales on the card and the host: from one stem output
+    every quant point and the blocks' output bit-equal (K3 with every
+    epilogue it runs on the path, the block output's included), one K3
+    launch per block conv, and the logits of whole forwards within 1e-2
+    of their spread (the bf16 stem accumulates in another order)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models import resnet3d_int8 as tq8
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+
+    resolve_device("cuda")
+    model = generate_model(model_depth=depth, generator=torch.Generator().manual_seed(depth))
+    qp = tq8.export_int8(model.state_dict(), depth=depth, shortcut_type="B")
+    rng = np.random.default_rng(depth)
+    cal = torch.from_numpy(rng.normal(0, 1, (2, 20, 24, 20, 1)).astype(np.float32))
+    scales = tq8.calibrate_int8(qp, [cal])
+    net_h = tq8.ResNet3DInt8(tq8.strip_fp(qp), scales)
+    net_c = tq8.ResNet3DInt8(tq8.strip_fp(qp), scales).to(cuda)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 20, 24, 20, 1)).astype(np.float32))
+    n_convs = sum(len(blk["convs"]) for blk in net_c.blocks)
+    with torch.inference_mode():
+        h = net_c.stem(x.to(cuda, torch.bfloat16))
+        taps_c, taps_h = [], []
+        before = tk3.conv_i8.launches
+        out_c, _ = net_c.blocks_forward(h, taps=taps_c)
+        torch.cuda.synchronize()
+        assert tk3.conv_i8.launches - before == n_convs
+        out_h, _ = net_h.blocks_forward(h.cpu(), taps=taps_h)
+        card, host = net_c(x.to(cuda)).cpu(), net_h(x)
+    assert len(taps_c) == len(taps_h) == len(net_c.scale_keys)
+    for key, a, b in zip(net_c.scale_keys, taps_c, taps_h):
+        assert torch.equal(a.cpu(), b), key
+    assert torch.equal(out_c.cpu(), out_h)
+    spread = float(host.abs().max())
+    assert float((card - host).abs().max()) <= 1e-2 * max(spread, 1e-6)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build K1 (csrc/fused_gather.cu), K2 (csrc/roi_pool.cu) and K3
-   (csrc/int8_conv.cu) with nvcc for sm_90a, in parallel, timed;
+   (csrc/int8_conv.cu) with nvcc for sm_90a, in parallel, timed, and the
+   native NIfTI decoder (native/nifti_reader.cpp) with g++, timed; the run
+   fails if either does not build;
 3. K1 against its plain PyTorch version on the card: 32 full-size
    91x109x91 volumes in uint8, int16 (with negatives) and float32,
    repeated indices and one constant volume, f32 and bf16 output, int32
@@ -31,7 +33,10 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    tile size T, the tile count and the path (bulk or SIMT) of each; then
    its time (as K1's) beside its bound, the plain version's and the
    `index_add_` library call's;
-7. ROI extraction: a 50-subject dataset at 91x109x91, the atlas as NIfTI +
+7. the native NIfTI decoder: bit-equal to the Python reader on the 50
+   volumes below, each reader's decode rate at VolumeBatcher's
+   8 threads (in turns) and NativeBatchDecoder's; then ROI extraction: a
+   50-subject dataset at 91x109x91, the atlas as NIfTI +
    JSON LUT, `cli.extract_features` on the card at full width (UNet3D
    64/128/256/512, float32, batch 8; the seed-42 test split is 10 subjects,
    batches 8 + 2): K1 and K2 launched, CSV shapes, finite values, a second
@@ -64,8 +69,11 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    batch at a constant rate, whose CE must fall, the first step timed
    (cuDNN autotune); the step rate (median of 12 after 2 of warm-up, CUDA
    events), its split (K1 + augmentation, forward + backward, optimizer),
-   peak memory and a profile of two steps; two streamed epochs, for the
-   share of time the card waits on the host's decode; then
+   peak memory and a profile of two steps; streamed epochs, for the
+   share of time the card waits on the host's decode, with the native
+   decoder and with the Python reader (MAD_NO_NATIVE_IO=1): one uncounted
+   epoch, then four epochs at a time in turns native, python, python,
+   native; then
    `cli.train_unet3d` (augment, 2 epochs, lr 1e-3): K1 launched on every
    batch, finite losses, the 19-column unet_results.csv, best_model's fp32
    logits on the card against the host CPU (2e-3); and the JAX package's
@@ -100,7 +108,37 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    training volumes: `evaluate_records` AUC of int8 within 0.01 of bf16
    over the 8 test subjects and 40 more held-out subjects of phase 8's
    generator (the test subjects' AUC is printed too);
-12. one JSON line {"kernels": [...]} and, last, the device line.
+12. DenseNet-3D training at the TPU package's full width (growth 16,
+   blocks 6/12/24/16, dilations 1/1/2/4, 64 initial features, compression
+   0.5, dropout 0.2, bf16 autocast, batch 8): 8 steps on one fixed batch,
+   whose weighted CE must fall, the first timed; `cli.train_densenet` on
+   phase 8's dataset as phase 8 trains the ResNet (hbm_cache + augment +
+   precise_bn, 2 folds x 2 epochs): K1 launched on every batch, finite
+   losses, the 19-column CSV, the checkpoints, finite test metrics; the
+   resident augmented rate (median of 14 steps after 2, CUDA events), a
+   profile of 4 steps (device time against wall time, so the idle share;
+   device kernels a step; the depthwise convs' share; the top kernels),
+   peak memory; three fp32 steps of a narrow DenseNet, card against host,
+   held to phase 8's bars;
+13. encoder features: `extract_encoder_features` of a seeded ResNet-18 B
+   in float32 with heads none (1,032,192 floats a row) and pool over
+   phase 7's 10 test subjects at batch 8: CSV shapes, finite values, the
+   stage-tap shape file, K1 launched a batch, native decodes, subjects/s
+   and a batch's split (forward against CSV writing); a ResNet-10 on the
+   card against the host (rtol = atol = 1e-3); the seg head (ResNet-18
+   head seg, B = 2, fp32) on the card against the host (1e-3 of the
+   spread);
+14. MSHyper at the TPU package's defaults (d_model 64, windows (4, 4),
+   inner size 3, attention; seq 96 -> 24, 7 channels, batch 32): forward
+   and the gradients of one backward on the card against the host (1e-4
+   of each tensor's spread), the train step's time; `cli.pvalue` and
+   `cli.roi_visualize --query-voxel --query-world --html` over phase 6's
+   atlas (no --mri: the card's machine has no matplotlib);
+15. one JSON line {"kernels": [...]} and, last, the device line.
+
+Every streamed path of phases 7, 9 (cli.train_unet3d), 10 and 13 prints
+VolumeBatcher's decodes by reader and fails unless they are all native;
+phase 9's timed epochs check that each ran on the reader it was given.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -294,6 +332,77 @@ def step_events(torch, fn, n, warmup=2):
     return statistics.median(a.elapsed_time(b) for a, b in events), first
 
 
+def card_vs_host_steps(torch, dev, make_model, shape):
+    """Three fp32 train steps (TF32 off) of `make_model()` at `shape`, B =
+    4 with one padded row, card against host CPU. The card starts each step
+    from the host's weights and Adam state: where a gradient is near zero
+    Adam can step either way on the two sides (it moves a parameter by about
+    lr whatever the gradient's size), and over free-running steps those
+    flips feed the next forward. Rows: (card loss, host loss, BN statistics
+    as a share of the rtol = atol = 1e-3 bound, parameter max |d|, share of
+    parameters within 1e-3)."""
+    from multimodal_ad_tpu_torch.train import loop
+
+    def make_state(device):
+        return loop.create_train_state(make_model().to(device),
+                                       loop.make_epoch_schedule(1e-3, 20))
+
+    host_st, card_st = make_state(torch.device("cpu")), make_state(dev)
+    gs = torch.Generator().manual_seed(SEED + 1)
+    rows = []
+    for _ in range(3):
+        card_st.model.load_state_dict(host_st.model.state_dict())
+        if host_st.step:
+            card_st.optimizer.load_state_dict(host_st.optimizer.state_dict())
+        card_st.step = host_st.step
+        bt = {"image": torch.randn((4, *shape, 1), generator=gs) * 2 + 1,
+              "label": torch.tensor([0, 1, 1, 0]), "mask": torch.tensor([1.0, 1.0, 1.0, 0.0])}
+        cwt = torch.tensor([0.3, 0.7])
+        l_host = float(loop.train_step(host_st, bt, cwt)[0])
+        l_card = float(loop.train_step(card_st, {k: v.to(dev) for k, v in bt.items()},
+                                       cwt.to(dev))[0])
+        h_sd = host_st.model.state_dict()
+        c_sd = {k: v.cpu() for k, v in card_st.model.state_dict().items()}
+        stats = max(float(((c_sd[k] - v).abs() / (1e-3 + 1e-3 * v.abs())).max())
+                    for k, v in h_sd.items() if ".running_" in k)
+        d_par = torch.cat([(c_sd[k] - v).abs().flatten() for k, v in h_sd.items()
+                           if v.is_floating_point() and ".running_" not in k])
+        rows.append((l_card, l_host, stats, float(d_par.max()),
+                     float((d_par <= 1e-3).float().mean())))
+    return rows
+
+
+def log_card_vs_host_steps(rows, name, lr_max=1e-3):
+    """Print `card_vs_host_steps`' rows and hold them to their bars: losses
+    rtol = atol = 1e-3, BN statistics within the same, parameters within 2
+    lr and 99.9 % of them within 1e-3."""
+    log(f"{name} fp32, 3 steps, card vs host CPU from the host's state (loss card / host, "
+        "BN statistics as a share of the rtol = atol = 1e-3 bound, parameter max |d| against "
+        "2 lr, share within 1e-3): "
+        + "; ".join(f"{a:.7f} / {b:.7f}, {c:.3g}, {d:.3g}, {e:.6f}" for a, b, c, d, e in rows))
+    check(all(abs(a - b) <= 1e-3 + 1e-3 * abs(b) and c <= 1.0 and d <= 2 * lr_max
+              and e >= 0.999 for a, b, c, d, e in rows),
+          f"card and host fp32 {name} train steps differ beyond their bounds")
+
+
+def reads_since(before):
+    """VolumeBatcher's decodes by reader since the counts `before`."""
+    from multimodal_ad_tpu_torch.data.pipeline import VolumeBatcher
+
+    return {k: v - before.get(k, 0) for k, v in VolumeBatcher.reads.items()}
+
+
+def reads_now():
+    from multimodal_ad_tpu_torch.data.pipeline import VolumeBatcher
+
+    return dict(VolumeBatcher.reads)
+
+
+def check_native_reads(counts, phase):
+    check(counts["native"] > 0 and counts["python"] == 0,
+          f"{phase} decoded {counts} (expected the native reader only)")
+
+
 def top_kernels(torch, fn, rows=12):
     """The device-time table of `fn()` under torch.profiler."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -302,6 +411,45 @@ def top_kernels(torch, fn, rows=12):
         torch.cuda.synchronize()
     return prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
                                      max_name_column_width=60)
+
+
+def native_decoder_check(torch, mri_dir):
+    """Phase 7's first part: the native NIfTI decoder builds here (g++),
+    is bit-equal to the Python reader on every file of `mri_dir`, and each
+    reader's decode rate at VolumeBatcher's 8 threads (in turns: python,
+    native, native, python), with NativeBatchDecoder's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_ad_tpu_torch.data.pipeline import read_volume
+    from multimodal_ad_tpu_torch.utils import native_loader, nifti
+
+    out = {}
+    check(native_loader.available(), "the native NIfTI decoder is not loaded")
+    paths = sorted(os.path.join(mri_dir, f) for f in os.listdir(mri_dir))
+    for p in paths:
+        vol, reader = read_volume(p)
+        ref = nifti.load(p)
+        check(reader == "native" and vol.shape == VOL_SHAPE
+              and np.array_equal(vol.view(np.uint32), ref.view(np.uint32)),
+              f"native decode of {p} ({reader}) differs from the Python reader's")
+    log(f"native NIfTI decoder ({native_loader.library_path().name}): {len(paths)} volumes "
+        "bit-equal to the Python reader")
+    rates = {"native": [], "python": []}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for reader in ("python", "native", "native", "python"):
+            t0 = time.time()
+            vols = list(pool.map(lambda p: read_volume(p, native=reader == "native"), paths))
+            rates[reader].append(len(paths) / (time.time() - t0))
+            check(all(r == reader for _, r in vols), f"{reader} run used another reader")
+    t0 = time.time()
+    native_loader.NativeBatchDecoder(VOL_SHAPE, n_threads=8).decode(paths)
+    out["batch_decoder_vols_per_s"] = len(paths) / (time.time() - t0)
+    out["decode_vols_per_s"] = rates
+    log(f"decode rate of {len(paths)} uncompressed 91x109x91 float32 volumes at 8 threads "
+        f"(vols/s, host clock, page cache warm): native {[round(r, 1) for r in rates['native']]}, "
+        f"python {[round(r, 1) for r in rates['python']]}; NativeBatchDecoder (8 pthreads) "
+        f"{out['batch_decoder_vols_per_s']:.1f}")
+    return out
 
 
 def unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records):
@@ -417,33 +565,56 @@ def unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records)
     log("profile of 2 train steps (device time by kernel):")
     log(top_kernels(torch, lambda: [step() for _ in range(2)]))
 
-    # streaming: how long the card waits for the host's NIfTI decode
-    loader = VolumeBatcher(u_train, batch_size=BATCH, shuffle=True, seed=42,
-                           transform=VolumeTransform(augment=True, seed=42))
-    dev_ms = []
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(2):
-        for bt in _device_batches(loader, dev, "scale_intensity", 2):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            loop.train_step(state, bt, ones)
-            b.record()
-            dev_ms.append((a, b))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    busy = sum(a.elapsed_time(b) for a, b in dev_ms) / 1e3
-    out["streamed_wall_s"], out["streamed_step_s"] = wall, busy
-    out["streamed_wait_share"] = 1 - busy / wall
-    log(f"streamed epochs (VolumeBatcher, pure-Python NIfTI decode, 2 x {len(dev_ms) // 2} "
-        f"batches): {wall:.2f} s wall, steps {busy:.2f} s on the card: the card waits on the "
-        f"host {out['streamed_wait_share']:.1%} of the time")
+    # streaming: how long the card waits for the host's NIfTI decode, with
+    # the native decoder and with the Python reader (MAD_NO_NATIVE_IO=1), in
+    # turns after one uncounted run: native, python, python, native; 4
+    # epochs a run (at 2 epochs a run one reader's runs spread over 21-32 %)
+    def streamed_epochs(python_reader, epochs=4):
+        if python_reader:
+            os.environ["MAD_NO_NATIVE_IO"] = "1"
+        before = reads_now()
+        try:
+            loader = VolumeBatcher(u_train, batch_size=BATCH, shuffle=True, seed=42,
+                                   transform=VolumeTransform(augment=True, seed=42))
+            dev_ms = []
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(epochs):
+                for bt in _device_batches(loader, dev, "scale_intensity", 2):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    loop.train_step(state, bt, ones)
+                    b.record()
+                    dev_ms.append((a, b))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            os.environ.pop("MAD_NO_NATIVE_IO", None)
+        busy = sum(a.elapsed_time(b) for a, b in dev_ms) / 1e3
+        return wall, busy, len(dev_ms), reads_since(before)
+
+    streamed_epochs(False, epochs=1)
+    waits = {"native": [], "python": []}
+    for reader in ("native", "python", "python", "native"):
+        wall, busy, n_steps, counts = streamed_epochs(reader == "python")
+        check(counts[reader] > 0 and sum(counts.values()) == counts[reader],
+              f"streamed epochs with the {reader} reader decoded {counts}")
+        waits[reader].append(1 - busy / wall)
+        log(f"streamed epochs ({reader} NIfTI decode, VolumeBatcher's 8 threads, 4 x "
+            f"{n_steps // 4} batches, decodes {counts}): {wall:.2f} s wall, steps {busy:.2f} s "
+            f"on the card: the card waits on the host {1 - busy / wall:.1%} of the time")
+    out["streamed_wait_share_native"] = waits["native"]
+    out["streamed_wait_share_python"] = waits["python"]
+    log(f"streamed wait share: native {[round(w, 4) for w in waits['native']]}, python "
+        f"{[round(w, 4) for w in waits['python']]}")
     del state, model, fixed, raw
 
     # the main path: cli.train_unet3d on the card
     unet_ckpt = os.path.join(work, "unet_ckpt")
     fg.gather_normalize.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    before = reads_now()
     t0 = time.time()
     best_auc = cli_unet.main([
         "--device", "cuda", f"label_file={train_csv}", f"mri_dir={train_mri}",
@@ -454,6 +625,9 @@ def unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records)
     out["cli_s"] = time.time() - t0
     out["k1_launches"] = fg.gather_normalize.launches
     out["cli_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["cli_reads"] = reads_since(before)
+    check_native_reads(out["cli_reads"], "cli.train_unet3d")
+    log(f"cli.train_unet3d decodes by reader: {out['cli_reads']}")
     expect = TRAIN_EPOCHS * (-(-len(u_train) // BATCH) - (-len(u_val) // BATCH))
     log(f"cli.train_unet3d: {out['cli_s']:.1f} s ({len(u_train)} train / {len(u_val)} val "
         f"subjects streamed, {TRAIN_EPOCHS} epochs); K1 launches {out['k1_launches']} "
@@ -554,6 +728,7 @@ def autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext
                  checkpoint_dir=os.path.join(work, "ae_ckpt"))
     fg.gather_normalize.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    before = reads_now()
     t0 = time.time()
     best, path = ae_mod.train_unet_autoencoder(cfg, device=dev)
     torch.cuda.synchronize()
@@ -579,6 +754,9 @@ def autoencoder_phase(torch, dev, card, work, train_csv, train_mri, records, ext
     out["extraction_s"] = time.time() - t0
     out["extraction_k1"] = fg.gather_normalize.launches
     out["extraction_k2"] = rp.roi_pool.launches
+    out["reads"] = reads_since(before)
+    check_native_reads(out["reads"], "autoencoder training and trained extraction")
+    log(f"autoencoder training + trained extraction decodes by reader: {out['reads']}")
     log(f"extraction from the trained autoencoder: {out['extraction_s']:.2f} s for "
         f"{len(ext_records)} subjects; K1 launches {out['extraction_k1']}, K2 launches "
         f"{out['extraction_k2']}")
@@ -998,6 +1176,357 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
     return out
 
 
+def profile_split(torch, prof, n_steps):
+    """(device ms, device kernels and copies) a step from a torch.profiler
+    run of `n_steps` steps."""
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(device_us(e) for e in rows) / 1e3 / n_steps,
+            sum(e.count for e in rows) / n_steps)
+
+
+def densenet_phase(torch, dev, card, work, train_csv, train_mri, tr_val, test_recs):
+    """Phase 12: the dilated DenseNet-3D at the TPU package's full width,
+    trained on the card through cli.train_densenet."""
+    from multimodal_ad_tpu_torch.cli import train_densenet as cli_dense
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.models.densenet import DilatedDenseNet
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.train import checkpoint as ckpt
+    from multimodal_ad_tpu_torch.train import loop
+
+    log(f"== 12. DenseNet-3D training: growth 16, blocks 6/12/24/16, dilations 1/1/2/4, 64 "
+        f"initial features, compression 0.5, dropout 0.2, bf16 autocast, 91x109x91, batch "
+        f"{BATCH}")
+    out = {}
+    ds = DeviceDataset(np.stack([load_volume(r["MRI"]) for r in tr_val])[..., None],
+                       np.array([r["label"] for r in tr_val]), store_dtype=np.float32)
+    cw = torch.tensor([0.5, 0.5], device=dev)
+
+    def fresh_state(seed):
+        m = DilatedDenseNet(compute_dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(seed)).to(dev)
+        return loop.create_train_state(m, loop.make_epoch_schedule(1e-3, 20),
+                                       dropout_seed=seed)
+
+    # one fixed batch, no augmentation: the weighted CE must fall; the first
+    # step carries cuDNN's autotune of the 58 layers' convolutions
+    fixed = next(iter(DeviceEpochIterator(ds, np.arange(BATCH), BATCH)))
+    state = fresh_state(SEED + 41)
+    out["params"] = sum(p.numel() for p in state.model.parameters())
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(loop.train_step(state, fixed, cw)[0]))
+        walls.append(time.time() - t0)
+    out["first_step_s"] = walls[0]
+    out["autotune_s"] = walls[0] - statistics.median(walls[2:])
+    log(f"{out['params']} parameters; fixed batch, 8 steps: weighted CE "
+        f"{[round(v, 4) for v in losses]}")
+    log(f"first train step {walls[0]:.2f} s against {statistics.median(walls[2:]) * 1e3:.1f} ms "
+        f"later: cuDNN autotune about {out['autotune_s']:.2f} s")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"DenseNet weighted CE did not fall on a fixed batch: {losses}")
+    del state
+
+    # the main path: cli.train_densenet on the card, as phase 8 trains the ResNet
+    dense_ckpt = os.path.join(work, "densenet_ckpt")
+    argv = [f"label_file={train_csv}", f"mri_dir={train_mri}", "compute_dtype=bfloat16",
+            f"batch_size={BATCH}", "hbm_cache=true", "augment=true", "precise_bn=true",
+            "normalizer=scale_intensity", "n_splits=2", f"num_epochs={TRAIN_EPOCHS}",
+            "lr=1e-3", "dropout_rate=0.2", f"checkpoint_dir={dense_ckpt}", "--device", "cuda"]
+    fg.gather_normalize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    results = cli_dense.main(argv)
+    torch.cuda.synchronize()
+    out["cli_s"] = time.time() - t0
+    out["k1_launches"] = fg.gather_normalize.launches
+    out["cli_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    per_epoch = 3 * (-(-(len(tr_val) // 2) // BATCH))
+    expect = 2 * TRAIN_EPOCHS * per_epoch + 2 * (-(-len(test_recs) // BATCH))
+    log(f"cli.train_densenet: {out['cli_s']:.1f} s (dataset upload, 2 folds x {TRAIN_EPOCHS} "
+        f"epochs, checkpoints, test); K1 launches {out['k1_launches']} (expected {expect}); "
+        f"peak memory {out['cli_peak_gb']:.2f} GB")
+    check(out["k1_launches"] == expect,
+          f"DenseNet training ran K1 {out['k1_launches']} times, expected {expect}")
+    with open(os.path.join(dense_ckpt, "cv_results.csv")) as f:
+        rows = list(csv.reader(f))
+    check(len(rows) == 1 + 2 * TRAIN_EPOCHS and all(len(r) == 19 for r in rows),
+          f"cv_results.csv is {len(rows)} rows of {len(rows[0])} columns")
+    il, vl = rows[0].index("tr_loss"), rows[0].index("vl_loss")
+    cv_losses = [(float(r[il]), float(r[vl])) for r in rows[1:]]
+    check(bool(np.isfinite(cv_losses).all()), f"non-finite CV losses {cv_losses}")
+    log(f"  cv_results.csv (fold, epoch, tr_loss, vl_loss, lr): "
+        f"{[(r[0], r[1], r[il], r[vl], r[-1]) for r in rows[1:]]}")
+    for k in (1, 2):
+        for name in (f"best_fold{k}", f"model_fold{k}_final"):
+            check(os.path.isfile(os.path.join(dense_ckpt, name, "model.pt"))
+                  and os.path.isfile(os.path.join(dense_ckpt, name, ckpt.TRAIN_STATE_FILE)),
+                  f"checkpoint {name} missing")
+    check(all(np.isfinite(results["avg"][k]) for k in ("ACC", "AUC", "SPE", "MCC")),
+          f"test metrics {results['avg']}")
+    out["test_avg"] = results["avg"]
+    log("  test metrics (fold mean): " + ", ".join(f"{k} {v:.4f}"
+                                                   for k, v in results["avg"].items()))
+
+    # the rate on the resident path: gather + K1 + augmentation + step
+    state = fresh_state(SEED + 42)
+    it = DeviceEpochIterator(ds, np.arange(ds.n), BATCH, shuffle=True, seed=SEED, augment=True)
+    batches = (bt for _ in range(4) for bt in it)  # 16 steps, 4 epochs of 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, t_wall = [], None
+    for step_i in range(16):
+        if step_i == 2:
+            torch.cuda.synchronize()
+            t_wall = time.time()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loop.train_step(state, next(batches), cw)
+        b.record()
+        if step_i >= 2:
+            events.append((a, b))
+    torch.cuda.synchronize()
+    wall = time.time() - t_wall
+    out["step_ms"] = statistics.median(a.elapsed_time(b) for a, b in events)
+    out["vols_per_s"] = BATCH / (out["step_ms"] / 1e3)
+    out["vols_per_s_pipelined"] = len(events) * BATCH / wall
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"training: {out['vols_per_s']:.2f} vols/s (resident, augmented, B={BATCH}: median "
+        f"step {out['step_ms']:.2f} ms of {len(events)} after 2 of warm-up, CUDA events), "
+        f"{out['vols_per_s_pipelined']:.2f} vols/s over the {len(events)} steps back to back "
+        f"(host clock) on {card}; peak memory {out['peak_gb']:.2f} GB")
+
+    # device time against wall time over 4 steps back to back: the idle share
+    prof_batches = [bt for bt in it]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for bt in prof_batches:
+            loop.train_step(state, bt, cw)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.time() - t0) / len(prof_batches)
+    dev_ms, launches = profile_split(torch, prof, len(prof_batches))
+    depthwise_us = sum(device_us(e) for e in prof.key_averages()
+                       if "depthwise" in e.key.lower())
+    out["device_ms_per_step"], out["launches_per_step"] = dev_ms, launches
+    out["profiled_wall_ms_per_step"] = prof_wall_ms
+    out["idle_share"] = 1 - dev_ms / prof_wall_ms
+    out["depthwise_share"] = depthwise_us / 1e3 / len(prof_batches) / dev_ms
+    log(f"profile of {len(prof_batches)} steps: {dev_ms:.2f} ms of device time a step against "
+        f"{prof_wall_ms:.2f} ms of wall time (profiler on): the card idles "
+        f"{out['idle_share']:.1%}; {launches:.0f} device kernels and copies a step; kernels "
+        f"named depthwise {out['depthwise_share']:.1%} of the device time")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
+                                  max_name_column_width=70))
+    del state, it, ds, fixed, prof_batches
+
+    rows = card_vs_host_steps(
+        torch, dev, lambda: DilatedDenseNet(growth=8, block_config=(2, 3, 2),
+                                            dilations=(1, 2, 4), init_features=16,
+                                            dropout_rate=0.0, compute_dtype=torch.float32,
+                                            generator=torch.Generator().manual_seed(SEED)),
+        (32, 38, 32))
+    log_card_vs_host_steps(rows, "DenseNet (growth 8, blocks 2/3/2) at 32x38x32")
+    return out
+
+
+ENCODER_TAPS = ["(8, 23, 28, 23, 64)", "(8, 12, 14, 12, 128)", "(8, 12, 14, 12, 256)",
+                "(8, 12, 14, 12, 512)"]  # ResNet-18 stage outputs at 91x109x91, B = 8
+
+
+def encoder_phase(torch, dev, card, work, ext_records):
+    """Phase 13: ResNet-18 encoder features (heads none and pool) and the
+    seg head on the card."""
+    from multimodal_ad_tpu_torch.eval.features import (deterministic_cudnn,
+                                                      extract_encoder_features)
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
+
+    log(f"== 13. encoder features: ResNet-18 B float32 with seeded weights, heads none and "
+        f"pool, {len(ext_records)} subjects (phase 7's test split), batch {BATCH}; the seg head")
+    out = {}
+    n = len(ext_records)
+    for head, width in (("none", 512 * 12 * 14 * 12), ("pool", 512)):
+        fg.gather_normalize.launches = 0
+        before = reads_now()
+        t0 = time.time()
+        f, s = extract_encoder_features(ext_records, os.path.join(work, f"encoder_{head}"),
+                                        depth=18, global_pool=head == "pool",
+                                        batch_size=BATCH, seed=SEED, device=dev)
+        wall = time.time() - t0
+        reads, k1 = reads_since(before), fg.gather_normalize.launches
+        with open(f) as fh:
+            rows = list(csv.reader(fh))
+        with open(s) as sh:
+            shapes = list(csv.reader(sh))
+        check(len(rows) == 1 + n and all(len(r) == 2 + width for r in rows),
+              f"adni_features.csv (head {head}) is {len(rows)} rows of {len(rows[0])} columns")
+        check(rows[0][-1] == "label" and [r[0] for r in rows[1:]] == [r["Subject"]
+                                                                       for r in ext_records],
+              f"adni_features.csv (head {head}) header or subjects")
+        vals = np.asarray([r[1:-1] for r in rows[1:]], np.float64)
+        check(bool(np.isfinite(vals).all()) and {r[-1] for r in rows[1:]} <= {"0", "1"},
+              f"head {head}: non-finite features or bad labels")
+        check(shapes == [["module", "output_shape"]] + [["stage_out", t] for t in ENCODER_TAPS],
+              f"feature_map_shapes.csv {shapes}")
+        check(k1 == -(-n // BATCH), f"head {head}: K1 launched {k1} times")
+        check_native_reads(reads, f"encoder extraction (head {head})")
+        out[head] = {"wall_s": wall, "subjects_per_s": n / wall, "k1_launches": k1,
+                     "reads": reads, "columns": len(rows[0])}
+        log(f"extract_encoder_features head {head}: {n} x {len(rows[0])} columns, finite, "
+            f"feature_map_shapes.csv as expected; {wall:.2f} s -> {n / wall:.3f} subjects/s "
+            f"on {card} (model init and the first call included); K1 launches {k1}; decodes "
+            f"{reads}")
+    out["k1_launches"] = out["none"]["k1_launches"] + out["pool"]["k1_launches"]
+
+    # the split of a head-none batch of 8: forward (CUDA events) against CSV writing
+    host = torch.from_numpy(np.stack([load_volume(r["MRI"]) for r in ext_records[:BATCH]])
+                            [..., None])
+    model = ResNet3D(depth=18, head="none", compute_dtype=torch.float32,
+                     generator=torch.Generator().manual_seed(SEED)).eval().to(dev)
+    x = scale_intensity(host.to(dev))
+    with torch.inference_mode(), deterministic_cudnn():
+        fwd_ms, _ = step_events(torch, lambda: model(x, return_taps=True), 3, warmup=1)
+        flat = model(x).reshape(BATCH, -1).cpu().numpy()
+    t0 = time.time()
+    with open(os.path.join(work, "encoder_split.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        for i in range(BATCH):
+            w.writerow([f"S{i}"] + flat[i].tolist() + [0])
+    csv_ms = 1e3 * (time.time() - t0)
+    out["split_ms"] = {"forward_ms": fwd_ms, "csv_write_ms": csv_ms}
+    log(f"split of a head-none batch of {BATCH}: forward {fwd_ms:.2f} ms (CUDA events, "
+        f"deterministic cuDNN, median of 3), CSV rows {csv_ms:.1f} ms (host clock)")
+    del model, x
+
+    # the card against the host CPU: ResNet-10 head none on one full-size volume
+    narrow = ResNet3D(depth=10, head="none", compute_dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+    x1 = scale_intensity(host[:1])
+    with torch.inference_mode():
+        h = narrow(x1)
+        with deterministic_cudnn():
+            c = narrow.to(dev)(x1.to(dev)).cpu()
+    out["resnet10_card_vs_host"] = float((c - h).abs().max())
+    log(f"ResNet-10 head none, card vs host CPU (fp32, TF32 off), one volume: max |d| "
+        f"{out['resnet10_card_vs_host']:.3g} (rtol = atol = 1e-3)")
+    check(torch.allclose(c, h, rtol=1e-3, atol=1e-3),
+          f"card and host encoder features differ by {out['resnet10_card_vs_host']}")
+
+    # the seg head: ResNet-18 head seg at 91x109x91, B = 2, fp32
+    seg = ResNet3D(depth=18, head="seg", num_seg_classes=2, compute_dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(SEED + 1)).eval()
+    x2 = scale_intensity(host[:2])
+    with torch.inference_mode():
+        h = seg(x2)
+        with deterministic_cudnn():
+            c = seg.to(dev)(x2.to(dev)).cpu()
+    spread = float(h.abs().max())
+    out["seg_card_vs_host"] = float((c - h).abs().max())
+    out["seg_shape"] = list(c.shape)
+    log(f"ResNet-18 head seg (2 classes), B = 2, fp32: output {tuple(c.shape)}, card vs host "
+        f"CPU max |d| {out['seg_card_vs_host']:.3g} against a spread of {spread:.4g} (bound "
+        f"1e-3 of the spread)")
+    check(tuple(c.shape) == (2, 24, 28, 24, 2) and bool(torch.isfinite(c).all()),
+          f"seg output {tuple(c.shape)}")
+    check(out["seg_card_vs_host"] <= 1e-3 * max(spread, 1e-6),
+          f"card and host seg outputs differ by {out['seg_card_vs_host']}")
+    return out
+
+
+def mshyper_and_tools_phase(torch, dev, card, work, atlas_nii, atlas_lut):
+    """Phase 14: MSHyper forward and backward on the card against the host,
+    its step time; cli.pvalue and cli.roi_visualize on this machine."""
+    import contextlib
+    import io
+
+    from multimodal_ad_tpu_torch.cli import pvalue as cli_pvalue
+    from multimodal_ad_tpu_torch.cli import roi_visualize as cli_roi
+    from multimodal_ad_tpu_torch.models.hypergraph import MSHyperModel
+
+    log("== 14. MSHyper (d_model 64, windows (4, 4), inner size 3, attention; seq 96 -> 24, "
+        "7 channels, batch 32), cli.pvalue, cli.roi_visualize")
+    out = {}
+    torch.manual_seed(SEED)
+    host = MSHyperModel(96, 24, 7)
+    model = MSHyperModel(96, 24, 7).to(dev)
+    model.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(SEED + 5)
+    series = torch.cumsum(torch.randn((32, 120, 7), generator=g), dim=1)
+    x, y = series[:, :96], series[:, 96:]
+    grads = {}
+    for name, m, d in (("host", host, "cpu"), ("card", model, dev)):
+        pred = m(x.to(d))
+        ((pred - y.to(d)) ** 2).mean().backward()
+        grads[name] = [pred.detach().cpu()] + [p.grad.cpu() for p in m.parameters()]
+    (c_out, *c_grads), (h_out, *h_grads) = grads["card"], grads["host"]
+    out_rel = float((c_out - h_out).abs().max()) / float(h_out.abs().max())
+    g_scale = max(float(g.abs().max()) for g in h_grads)
+    grad_rel = max(float((a - b).abs().max()) for a, b in zip(c_grads, h_grads)) / g_scale
+    own = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for (n, _), a, b in zip(host.named_parameters(), c_grads, h_grads)}
+    worst = max(own, key=own.get)
+    log(f"  largest |d| against a gradient's own magnitude: {worst} {own[worst]:.3g} (its "
+        f"magnitude {float(h_grads[list(own).index(worst)].abs().max()):.3g})")
+    out["card_vs_host_rel"] = {"output": out_rel, "gradients": grad_rel}
+    log(f"forward and the gradients of one backward, card vs host CPU (fp32, TF32 off): output "
+        f"max |d| {out_rel:.3g} of its largest magnitude, the {len(h_grads)} gradients max |d| "
+        f"{grad_rel:.3g} of the largest gradient (bounds 1e-4; a tensor alone is no scale: the "
+        f"attention key's bias gets a gradient of ~1e-10 that is 0 in exact arithmetic)")
+    check(out_rel <= 1e-4 and grad_rel <= 1e-4,
+          f"MSHyper card and host differ: output {out_rel}, gradients {grad_rel}")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    xd, yd = x.to(dev), y.to(dev)
+    losses = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = ((model(xd) - yd) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    out["step_ms"], _ = step_events(torch, step, 20, warmup=3)
+    losses = [float(v) for v in losses]
+    out["windows_per_s"] = 32 / (out["step_ms"] / 1e3)
+    log(f"train step (forward + backward + Adam), B = 32: median {out['step_ms']:.3f} ms of 20 "
+        f"after 3 of warm-up (CUDA events) -> {out['windows_per_s']:.1f} windows/s on {card}; "
+        f"MSE {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"MSHyper loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    def run(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        return buf.getvalue().splitlines()
+
+    lines = run(cli_pvalue.main, ["--a", "0.9152", "0.8830", "0.9218", "0.9340", "0.9418",
+                                  "--b", "0.9867", "0.9767", "0.9806", "0.9845", "0.9751"])
+    log("cli.pvalue: " + " | ".join(lines))
+    check(len(lines) == 2 and lines[0].startswith("paired t-test:")
+          and lines[1].startswith("wilcoxon:"), f"cli.pvalue printed {lines}")
+    html = os.path.join(work, "atlas_viewer.html")
+    lines = run(cli_roi.main, ["--atlas", atlas_nii, "--atlas-json", atlas_lut,
+                               "--query-voxel", "45", "54", "45",
+                               "--query-world", "-30", "-20", "10", "--html", html])
+    log("cli.roi_visualize: " + " | ".join(lines))
+    check(len(lines) == 3 and lines[0].startswith("voxel (45, 54, 45) -> ")
+          and lines[1].startswith("world (-30.0, -20.0, 10.0) -> ")
+          and os.path.getsize(html) > VOX, f"cli.roi_visualize printed {lines}")
+    out["html_bytes"] = os.path.getsize(html)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1036,7 +1565,7 @@ def main() -> int:
     from multimodal_ad_tpu_torch.serve import EnsemblePredictor
     from multimodal_ad_tpu_torch.train import checkpoint as ckpt
     from multimodal_ad_tpu_torch.train import loop
-    from multimodal_ad_tpu_torch.utils import nifti
+    from multimodal_ad_tpu_torch.utils import native_loader, nifti
 
     t_start = time.time()
     dev = resolve_device("cuda")  # TF32 off, cudnn.benchmark on
@@ -1065,6 +1594,12 @@ def main() -> int:
         f"{_build.library_path('roi_pool').name}, {_build.library_path('int8_conv').name})")
     for name in ("fused_gather", "roi_pool", "int8_conv"):
         log(_build.build_log(name).strip())
+    t0 = time.time()
+    native_err = native_loader.build_error()  # g++, the host NIfTI decoder
+    native_build_s = time.time() - t0
+    check(native_err is None, f"the native NIfTI decoder did not build: {native_err}")
+    log(f"native NIfTI decoder built with g++ and loaded in {native_build_s:.2f} s "
+        f"({native_loader.library_path().name})")
 
     # ---- 3. K1 against its plain version --------------------------------
     log("== 3. K1 vs plain, 32 volumes of 91x109x91")
@@ -1386,6 +1921,7 @@ def main() -> int:
         classes=("AD", "CN"), shape=VOL_SHAPE, seed=SEED, extent_jitter=0.3,
         center_jitter=0.05)
     log(f"wrote {N_SUBJECTS} subjects in {time.time() - t0:.1f} s")
+    native = native_decoder_check(torch, mri_dir)
     argv = ["--atlas", atlas_nii, "--atlas-json", atlas_lut,
             f"label_file={label_csv}", f"mri_dir={mri_dir}", f"batch_size={BATCH}"]
     fg.gather_normalize.launches = 0
@@ -1393,6 +1929,7 @@ def main() -> int:
     rp.roi_pool.path_launches = dict.fromkeys(rp.PATHS, 0)
     torch.cuda.reset_peak_memory_stats()
     walls = []
+    before = reads_now()
     for run in (1, 2):
         t0 = time.time()
         feat_csv, roi_csv = cli_extract.main(argv + ["--out", os.path.join(work, f"out{run}")])
@@ -1402,8 +1939,11 @@ def main() -> int:
             ext_k2 = rp.roi_pool.launches
             ext_k2_paths = dict(rp.roi_pool.path_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    native["extraction_reads"] = reads_since(before)
+    check_native_reads(native["extraction_reads"], "cli.extract_features")
     log(f"extraction K1 launches {ext_k1}, K2 launches {ext_k2} (first run; K2 by "
-        f"path {ext_k2_paths})")
+        f"path {ext_k2_paths}); decodes by reader over both runs "
+        f"{native['extraction_reads']}")
     check(ext_k1 > 0 and ext_k2 > 0, "the extraction path did not launch K1 and K2")
     n_test = len(stratified_test_split(
         ADNIManifest(label_csv, mri_dir, verbose=False).data_dict, 0.2, 42)[1])
@@ -1700,47 +2240,13 @@ def main() -> int:
                                   max_name_column_width=60))
     del state, it, train_ds, fixed
 
-    # fp32, TF32 off: three steps of a ResNet-10, card against host CPU. The
-    # card starts each step from the host's weights and Adam state: where a
-    # gradient is near zero Adam can step either way on the two sides (it
-    # moves a parameter by about lr whatever the gradient's size), and over
-    # free-running steps those flips feed the next forward
-    def make_state(device):
-        m = generate_model(model_depth=10, dropout_rate=0.0, compute_dtype=torch.float32,
-                           generator=torch.Generator().manual_seed(SEED)).to(device)
-        return loop.create_train_state(m, loop.make_epoch_schedule(1e-3, 20))
-
-    host_st, card_st = make_state(torch.device("cpu")), make_state(dev)
-    gs = torch.Generator().manual_seed(SEED + 1)
-    fp32_rows = []
-    for _ in range(3):
-        card_st.model.load_state_dict(host_st.model.state_dict())
-        if host_st.step:
-            card_st.optimizer.load_state_dict(host_st.optimizer.state_dict())
-        card_st.step = host_st.step
-        bt = {"image": torch.randn((4, 32, 38, 32, 1), generator=gs) * 2 + 1,
-              "label": torch.tensor([0, 1, 1, 0]), "mask": torch.tensor([1.0, 1.0, 1.0, 0.0])}
-        cwt = torch.tensor([0.3, 0.7])
-        l_host = float(loop.train_step(host_st, bt, cwt)[0])
-        l_card = float(loop.train_step(card_st, {k: v.to(dev) for k, v in bt.items()},
-                                       cwt.to(dev))[0])
-        h_sd = host_st.model.state_dict()
-        c_sd = {k: v.cpu() for k, v in card_st.model.state_dict().items()}
-        stats = max(float(((c_sd[k] - v).abs() / (1e-3 + 1e-3 * v.abs())).max())
-                    for k, v in h_sd.items() if ".running_" in k)
-        d_par = torch.cat([(c_sd[k] - v).abs().flatten() for k, v in h_sd.items()
-                           if v.is_floating_point() and ".running_" not in k])
-        fp32_rows.append((l_card, l_host, stats, float(d_par.max()),
-                          float((d_par <= 1e-3).float().mean())))
-    lr_max = 1e-3
-    log("ResNet-10 fp32, 3 steps at 32x38x32, card vs host CPU from the host's state "
-        "(loss card / host, BN statistics as a share of the rtol = atol = 1e-3 bound, "
-        "parameter max |d| against 2 lr, share within 1e-3): "
-        + "; ".join(f"{a:.7f} / {b:.7f}, {c:.3g}, {d:.3g}, {e:.6f}"
-                    for a, b, c, d, e in fp32_rows))
-    check(all(abs(a - b) <= 1e-3 + 1e-3 * abs(b) and c <= 1.0 and d <= 2 * lr_max
-              and e >= 0.999 for a, b, c, d, e in fp32_rows),
-          "card and host fp32 train steps differ beyond their bounds")
+    # fp32, TF32 off: three steps of a ResNet-10, card against host CPU
+    fp32_rows = card_vs_host_steps(
+        torch, dev, lambda: generate_model(model_depth=10, dropout_rate=0.0,
+                                           compute_dtype=torch.float32,
+                                           generator=torch.Generator().manual_seed(SEED)),
+        (32, 38, 32))
+    log_card_vs_host_steps(fp32_rows, "ResNet-10")
 
     # ---- 9. U-Net classifier training ------------------------------------
     unet = unet_classifier_phase(torch, dev, card, work, train_csv, train_mri, records)
@@ -1753,9 +2259,18 @@ def main() -> int:
 
     # ---- 11. int8 serving -------------------------------------------------
     q8 = int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_recs)
+
+    # ---- 12. DenseNet-3D training ------------------------------------------
+    dense = densenet_phase(torch, dev, card, work, train_csv, train_mri, tr_val, test_recs)
+
+    # ---- 13. encoder features and the seg head ------------------------------
+    enc = encoder_phase(torch, dev, card, work, ext_records)
+
+    # ---- 14. MSHyper and the host tools -------------------------------------
+    tools = mshyper_and_tools_phase(torch, dev, card, work, atlas_nii, atlas_lut)
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 12. result ----------------------------------------------------
+    # ---- 15. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -1765,7 +2280,7 @@ def main() -> int:
         "replaces": K1_REPLACES,
         "launches": (serve_launches + resident_launches + ext_k1 + train_launches
                      + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]
-                     + q8["k1_launches"]),
+                     + q8["k1_launches"] + dense["k1_launches"] + enc["k1_launches"]),
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
@@ -1774,6 +2289,8 @@ def main() -> int:
         "launches_autoencoder": ae["k1_launches"],
         "launches_trained_extraction": ae["extraction_k1"],
         "launches_int8_serving": q8["k1_launches"],
+        "launches_densenet_training": dense["k1_launches"],
+        "launches_encoder_extraction": enc["k1_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1854,6 +2371,9 @@ def main() -> int:
                     "training_test_avg": results["avg"],
                     "unet_classifier": unet, "autoencoder": ae,
                     "int8": {k: v for k, v in q8.items() if k not in ("k3_shapes",)},
+                    "native_decoder": dict(native, build_s=native_build_s),
+                    "densenet": dense, "encoder": enc,
+                    "mshyper_and_tools": tools,
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

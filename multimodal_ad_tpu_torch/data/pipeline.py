@@ -1,11 +1,17 @@
 """Host input pipeline (port of the TPU package's data/pipeline.py).
 
-- `load_volume`: decode one NIfTI volume with the pure-Python reader (the
-  native C++ decoder comes with a later slice);
+- `load_volume`: decode one NIfTI volume, with the native C++ decoder
+  (utils/native_loader.py, built with g++ at first use) whenever it
+  builds, and per volume with the pure-Python reader where the file's
+  encoding is one the native decoder does not cover (not 3-D, an unknown
+  datatype). ``MAD_NO_NATIVE_IO=1`` forces the Python reader. Both give
+  the same bits;
 - `VolumeBatcher`: batches of decoded volumes, decoded by a thread pool one
   batch ahead of the consumer. A ragged last batch is padded to the static
   size with real rows cycled from the order, and `mask` marks the real
-  rows, so every forward sees one shape;
+  rows, so every forward sees one shape. `VolumeBatcher.reads` counts the
+  decodes of every batcher by reader ("native", "python", or "custom" for
+  a loader of the caller's);
 - `device_prefetch`: in place of the TPU package's mesh `device_put`
   loop, a thread copies each batch's arrays into pinned host memory and
   uploads them on a side CUDA stream, `depth` batches ahead; the consumer's
@@ -15,6 +21,7 @@
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -22,13 +29,30 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..utils import nifti
+from ..utils import native_loader, nifti
+
+
+def read_volume(path: str, native: bool | None = None) -> tuple[np.ndarray, str]:
+    """Decode one NIfTI volume as float32 [x, y, z] (the path with or
+    without a trailing '.gz'); returns (volume, reader), reader "native" or
+    "python". `native=None` decodes natively unless ``MAD_NO_NATIVE_IO=1``
+    is set or the decoder did not build; a file in an encoding the native
+    decoder does not cover falls back to the Python reader, a broken file
+    raises."""
+    actual = nifti.exists_with_ext(path) or path
+    if native is None:
+        native = os.environ.get("MAD_NO_NATIVE_IO", "0") != "1"
+    if native and native_loader.available():
+        try:
+            return native_loader.load_volume_native(actual), "native"
+        except native_loader.UnsupportedEncoding:
+            pass
+    return nifti.load(actual), "python"
 
 
 def load_volume(path: str) -> np.ndarray:
-    """Decode one NIfTI volume as float32 [x, y, z]; accepts the path with
-    or without a trailing '.gz'."""
-    return nifti.load(nifti.exists_with_ext(path) or path)
+    """Decode one NIfTI volume as float32 [x, y, z] (see `read_volume`)."""
+    return read_volume(path)[0]
 
 
 class VolumeBatcher:
@@ -47,6 +71,10 @@ class VolumeBatcher:
     source's), which the device applies after normalizing. Other
     modalities are not ported."""
 
+    # decodes of every batcher in the process, by reader
+    reads = {"native": 0, "python": 0, "custom": 0}
+    _reads_lock = threading.Lock()
+
     def __init__(self, records, batch_size: int = 8, num_threads: int = 8,
                  loader=load_volume, shuffle: bool = False, seed: int = 0,
                  transform=None):
@@ -63,7 +91,11 @@ class VolumeBatcher:
         return (len(self.records) + self.batch_size - 1) // self.batch_size
 
     def _decode(self, rec):
-        return self.loader(rec["MRI"])[..., None], rec["label"], rec["Subject"]
+        if self.loader is load_volume:
+            vol, reader = read_volume(rec["MRI"])
+        else:
+            vol, reader = self.loader(rec["MRI"]), "custom"
+        return vol[..., None], rec["label"], rec["Subject"], reader
 
     def _chunks(self):
         """(indices, n_real) per batch of the next epoch's order; a ragged
@@ -97,7 +129,10 @@ class VolumeBatcher:
             for ci, (chunk, n_real) in enumerate(chunks):
                 futures = pending  # decode the next batch while this one is used
                 pending = submit(chunks[ci + 1][0]) if ci + 1 < len(chunks) else None
-                vols, labels, subjects = zip(*(f.result() for f in futures))
+                vols, labels, subjects, readers = zip(*(f.result() for f in futures))
+                with self._reads_lock:
+                    for reader in readers:
+                        self.reads[reader] += 1
                 mask = np.ones((len(vols),), np.float32)
                 mask[n_real:] = 0.0
                 batch = {"image": np.stack(vols).astype(np.float32),

@@ -8,10 +8,14 @@
   color` rows);
 - nearest-neighbour resampling through world coordinates onto another grid
   (the 1-mm AAL3 atlas onto the 2-mm 91x109x91 MNI grid of the volumes);
-- `compact_labels`: arbitrary ROI ids -> contiguous 1..R for pooling.
-
-The ROI queries, the overlay PNG and the HTML viewer belong to the
-visualisation CLI and are not ported yet.
+- `compact_labels`: arbitrary ROI ids -> contiguous 1..R for pooling;
+- ROI queries (the TPU package's eval/atlas.py:146-180): `roi_centers`
+  (centroids in voxel or world coordinates), `query_voxel` (voxel index ->
+  ROI name) and `query_world` (world mm -> nearest ROI centroid);
+- `save_roi_overlay`: the union of some ROIs' masks over the central slice
+  of a volume, as a PNG. It needs matplotlib, imported inside the
+  function, so it runs only where matplotlib is installed (not on the
+  card's machine); the rest of the module needs numpy alone.
 """
 
 from __future__ import annotations
@@ -119,3 +123,62 @@ def compact_labels(labels: np.ndarray, roi_ids: np.ndarray) -> np.ndarray:
     for new, old in enumerate(roi_ids, start=1):
         mapping[int(old)] = new
     return mapping[labels]
+
+
+def roi_centers(labels: np.ndarray, roi_ids: np.ndarray,
+                affine: np.ndarray | None = None) -> dict:
+    """Per-ROI centroid in voxel (or world, if `affine` is given)
+    coordinates: {roi_id: (3,) array}."""
+    centers = {}
+    for rid in roi_ids:
+        c = np.argwhere(labels == rid).mean(axis=0)
+        if affine is not None:
+            c = (affine @ np.append(c, 1.0))[:3]
+        centers[int(rid)] = c
+    return centers
+
+
+def query_voxel(labels: np.ndarray, roi_names_by_id: dict, ijk) -> str | None:
+    """Voxel index -> ROI name; None outside the grid or on background."""
+    i, j, k = (int(v) for v in ijk)
+    if not all(0 <= v < s for v, s in zip((i, j, k), labels.shape)):
+        return None
+    rid = int(labels[i, j, k])
+    if rid == 0:
+        return None
+    return roi_names_by_id.get(rid, f"ROI{rid}")
+
+
+def query_world(xyz, centers_world: dict, roi_names_by_id: dict):
+    """World mm coordinate -> (name, id, distance) of the nearest ROI
+    centroid."""
+    xyz = np.asarray(xyz, float)
+    best, best_d = None, np.inf
+    for rid, c in centers_world.items():
+        d = float(np.linalg.norm(xyz - c))
+        if d < best_d:
+            best, best_d = rid, d
+    return roi_names_by_id.get(best, f"ROI{best}"), best, best_d
+
+
+def save_roi_overlay(mri: np.ndarray, labels: np.ndarray, roi_ids,
+                     out_png: str, axis: int = 2, alpha: float = 0.5) -> str:
+    """Overlay the union of `roi_ids` masks on the central slice of `mri`
+    along `axis` and save a PNG (the reference's hippocampus overlay uses
+    AAL3 ids 41/42). Needs matplotlib."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    mask = np.isin(labels, list(roi_ids))
+    base = np.take(mri, mri.shape[axis] // 2, axis=axis)
+    over = np.take(mask, mri.shape[axis] // 2, axis=axis)
+
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.imshow(base.T, cmap="gray", origin="lower")
+    ax.imshow(np.ma.masked_where(~over.T, over.T), cmap="autumn", alpha=alpha,
+              origin="lower")
+    ax.set_axis_off()
+    fig.savefig(out_png, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return out_png

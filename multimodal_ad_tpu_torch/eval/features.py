@@ -1,7 +1,7 @@
-"""U-Net voxel + atlas-ROI feature extraction (port of the TPU package's
-eval/features.py::extract_unet_features).
+"""Feature extraction (port of the TPU package's eval/features.py): U-Net
+voxel + atlas-ROI features, and ResNet encoder embeddings.
 
-Forwards the records through a UNet3D and writes
+`extract_unet_features` forwards the records through a UNet3D and writes
 - features.csv:     Subject_ID, f0..f{X*Y*Z-1} (the flattened 1-channel output),
 - roi_features.csv: Subject_ID, {ROIname}_c{ch} (ROI means of the 64-channel
   pre-head map), ROI-major; `reference_bug_compat=True` writes each row
@@ -15,7 +15,14 @@ path holds cuDNN to deterministic algorithms while it runs
 (`deterministic_cudnn`), so the CSVs are byte-identical from run to run
 on one machine.
 
-`extract_encoder_features` (ResNet encoder embeddings) is not ported yet.
+`extract_encoder_features` forwards the records through a ResNet encoder
+(head 'none': the layer4 map, or 'pool': its global average) in float32
+and writes adni_features.csv (Subject_ID, f0.., label; each row the
+sample's output flattened channels-last, as the TPU package's
+channels-last model flattens it) and feature_map_shapes.csv (the four
+stage taps' (B, X, Y, Z, C) shapes, B the padded batch). Input as above:
+uploaded raw, normalized on the device (K1 for `scale_intensity`), cuDNN
+held to deterministic heuristic algorithms.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..data.pipeline import VolumeBatcher, device_prefetch, load_volume
+from ..models.resnet3d import ResNet3D
 from ..models.unet3d import UNet3D
 from ..ops.normalize import NORMALIZERS
 from ..ops.roi_pool import RoiAtlas, roi_pool
@@ -105,3 +113,61 @@ def extract_unet_features(records, atlas_labels, roi_names, out_dir,
                 fw.writerow([sid] + flat[i].tolist())
                 rw.writerow([sid] + rows[i].tolist())
     return feat_path, roi_path
+
+
+def extract_encoder_features(records, out_dir, depth: int = 18,
+                             global_pool: bool = False, model: ResNet3D | None = None,
+                             batch_size: int = 4, loader=load_volume,
+                             num_threads: int = 8, seed: int = 0,
+                             normalizer: str = "scale_intensity",
+                             device: str | torch.device = "cuda"):
+    """ResNet encoder features of `records` ({'MRI': path, 'label',
+    'Subject'}) -> adni_features.csv + feature_map_shapes.csv in `out_dir`;
+    returns their paths.
+
+    `model` carries its weights (its head 'none' or 'pool' decides the
+    row); by default it is an eval-mode float32 ResNet `depth` with head
+    'pool' if `global_pool` else 'none', its weights drawn from a
+    generator seeded with `seed`, as the reference extracts with an
+    untrained encoder."""
+    dev = resolve_device(device)
+    if normalizer not in NORMALIZERS:
+        raise ValueError(f"unknown normalizer {normalizer!r}")
+    normalize = NORMALIZERS[normalizer]
+    if model is None:
+        model = ResNet3D(depth=depth, head="pool" if global_pool else "none",
+                         compute_dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed))
+    if model.head not in ("none", "pool"):
+        raise ValueError(f"encoder features need head 'none' or 'pool', not {model.head!r}")
+    model = model.eval().requires_grad_(False).to(dev)
+    batcher = VolumeBatcher(records, batch_size=batch_size, num_threads=num_threads,
+                            loader=loader)
+
+    os.makedirs(out_dir, exist_ok=True)
+    feat_path = os.path.join(out_dir, "adni_features.csv")
+    shape_path = os.path.join(out_dir, "feature_map_shapes.csv")
+    shape_rows = []
+    with open(feat_path, "w", newline="") as ff, deterministic_cudnn():
+        fw = csv.writer(ff)
+        wrote_header = False
+        for batch in device_prefetch(iter(batcher), dev, depth=2):
+            subjects = batch["subject"]  # the real rows, which come first
+            with torch.inference_mode():
+                out, taps = model(normalize(batch["image"]), return_taps=True)
+                flat = out.float().reshape(out.shape[0], -1).cpu().numpy()
+            labels = batch["label"].cpu().numpy()
+            if not wrote_header:
+                fw.writerow(["Subject_ID"] + [f"f{i}" for i in range(flat.shape[1])]
+                            + ["label"])
+                shape_rows = [("stage_out", tuple(int(d) for d in t.shape)) for t in taps]
+                wrote_header = True
+            for i, sid in enumerate(subjects):
+                fw.writerow([sid] + flat[i].tolist() + [int(labels[i])])
+
+    with open(shape_path, "w", newline="") as sf:
+        sw = csv.writer(sf)
+        sw.writerow(["module", "output_shape"])
+        for name, shape in shape_rows:
+            sw.writerow([name, str(shape)])
+    return feat_path, shape_path

@@ -8,12 +8,21 @@ models/resnet3d.py.
 - shortcut 'A' (strided 1x1x1 avg pool + zero channel pad) or 'B' (1x1 conv
   + BN),
 - heads: 'classifier' (the reference's swapped-in conv_seg: AdaptiveAvgPool3d,
-  Flatten, Dropout, Linear), 'pool' (GAP embedding) and 'none' (layer4
-  feature map). The transposed-conv 'seg' head is not ported yet.
+  Flatten, Dropout, Linear), 'seg' (MedicalNet's segmentation head: a 2^3
+  stride-2 transposed conv with bias to 32 channels, BN, ReLU, a 3^3 conv
+  without bias, BN, ReLU, a 1^3 conv without bias to `num_seg_classes`;
+  the TPU package's SegHead), 'pool' (GAP embedding) and 'none' (layer4
+  feature map);
+- `forward(x, return_taps=True)` also returns the four stage outputs,
+  channels-last, in place of the TPU package's `sow`n 'stage_out' taps.
 
 Parameters carry MedicalNet names (conv1, bn1, layerK.J.convI / bnI,
-layerK.J.downsample.0/1, conv_seg.3), so utils/torch_weights.py's name map
-fixes the state_dict key set. The TPU package's space-to-depth stem computes
+layerK.J.downsample.0/1; the classifier's Linear conv_seg.3; the seg
+head's layers conv_seg.0 (transposed conv), .1 (BN), .3 (conv), .4 (BN)
+and .6 (conv), .2 and .5 its ReLUs, as in MedicalNet's `conv_seg`), so
+utils/torch_weights.py's name map fixes the state_dict key set and
+`load_medicalnet_weights` transfers a pretrained seg head by key
+intersection. The TPU package's space-to-depth stem computes
 the same convolution from the same (7,7,7,C,64) parameter; here the stem is
 a plain Conv3d and cuDNN picks its algorithm.
 
@@ -50,7 +59,7 @@ DEPTH_BLOCKS = {
 # architecture; corrected to 512, as in the TPU package.
 FC_IN = {10: 512, 18: 512, 34: 512, 50: 2048, 101: 2048, 152: 2048, 200: 2048}
 STAGES = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))  # planes, stride, dilation
-HEADS = ("classifier", "pool", "none")
+HEADS = ("classifier", "seg", "pool", "none")
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -60,16 +69,18 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
                      bias=False)
 
 
-class FlaxBatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm3d whose running variance takes the biased batch variance,
-    as flax's BatchNorm does (the TPU package's models/resnet3d.py:111-117).
+class _FlaxRunningVar:
+    """Mixin for a stock BatchNorm: its running variance takes the biased
+    batch variance, as flax's BatchNorm does (the TPU package's
+    models/resnet3d.py:111-117).
 
     The stock train-mode call blends the unbiased variance u into
     `running_var` with factor f (the momentum, or 1/num_batches_tracked
     with ``momentum=None``): new = (1 - f) * old + f * u. The update f * u
-    is then rescaled by (n - 1) / n, n = B * D * H * W, one elementwise op
-    on C values; the activations are not read again. Eval mode and the
-    state_dict are the stock module's."""
+    is then rescaled by (n - 1) / n, n = the elements per channel (B * D *
+    H * W, or B * H * W in 2-D), one elementwise op on C values; the
+    activations are not read again. Eval mode and the state_dict are the
+    stock module's."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
@@ -86,6 +97,14 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
             keep = old * (1.0 - f)  # new - keep = f * u
             self.running_var = keep.lerp_(self.running_var, (n - 1) / n)
         return out
+
+
+class FlaxBatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
+    """BatchNorm3d with flax's biased running variance (`_FlaxRunningVar`)."""
+
+
+class FlaxBatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    """BatchNorm2d with flax's biased running variance (`_FlaxRunningVar`)."""
 
 
 def _bn(c: int) -> nn.BatchNorm3d:
@@ -190,13 +209,13 @@ class ResNet3D(nn.Module):
     def __init__(self, depth: int = 18, num_classes: int = 2,
                  in_channels: int = 1, shortcut_type: str = "B",
                  head: str = "classifier", dropout_rate: float = 0.5,
-                 compute_dtype: torch.dtype = torch.bfloat16,
+                 num_seg_classes: int = 1, compute_dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None):
         super().__init__()
         if depth not in DEPTH_BLOCKS:
             raise ValueError(f"unsupported depth {depth}")
         if head not in HEADS:
-            raise ValueError(f"head={head!r} is not ported; choose from {HEADS}")
+            raise ValueError(f"unknown head {head!r}; choose from {HEADS}")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported compute_dtype {compute_dtype}")
         self.depth = depth
@@ -226,27 +245,42 @@ class ResNet3D(nn.Module):
                 nn.AdaptiveAvgPool3d(1), nn.Flatten(),
                 GeneratorDropout(dropout_rate),
                 nn.Linear(FC_IN[depth], num_classes))
+        elif head == "seg":
+            self.conv_seg = nn.Sequential(
+                nn.ConvTranspose3d(FC_IN[depth], 32, 2, stride=2),
+                _bn(32), nn.ReLU(),
+                _conv(32, 32, 3), _bn(32), nn.ReLU(),
+                nn.Conv3d(32, num_seg_classes, 1, bias=False))
 
         # `generator` (a CPU torch.Generator) makes the draws a seed's own
         for m in self.modules():
             if isinstance(m, nn.Conv3d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                         nonlinearity="relu", generator=generator)
-            elif isinstance(m, nn.Linear) and generator is not None:
-                # nn.Linear's own init, drawn from the generator
-                bound = 1.0 / m.in_features ** 0.5
+            elif isinstance(m, (nn.Linear, nn.ConvTranspose3d)) and generator is not None:
+                # the layer's own init, drawn from the generator
+                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
                 nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+                nn.init.uniform_(m.bias, -fan_in ** -0.5, fan_in ** -0.5,
+                                 generator=generator)
 
-    def features(self, x):
-        """NCDHW input -> layer4 feature map (NCDHW)."""
+    def features(self, x, taps: list | None = None):
+        """NCDHW input -> layer4 feature map (NCDHW); with a list `taps`,
+        each stage's output is appended to it."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = stage(x)
+            if taps is not None:
+                taps.append(x)
+        return x
 
-    def forward(self, x):
+    def forward(self, x, return_taps: bool = False):
         """(B, X, Y, Z, C) -> logits (B, classes) f32 for 'classifier',
-        (B, 512 * expansion) f32 for 'pool', the (B, X', Y', Z', F) layer4
-        map for 'none'."""
+        the (B, 2X', 2Y', 2Z', num_seg_classes) map for 'seg' (in the
+        compute dtype), (B, 512 * expansion) f32 for 'pool', the (B, X',
+        Y', Z', F) layer4 map for 'none'. With `return_taps`, returns
+        (output, taps): the four stage outputs, channels-last, in the
+        compute dtype."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(
                 f"input has {x.shape[-1]} channels, model declares "
@@ -255,14 +289,21 @@ class ResNet3D(nn.Module):
         bf16 = self.compute_dtype == torch.bfloat16
         if not bf16:
             x = x.to(torch.float32)
+        taps = [] if return_taps else None
         with torch.autocast(device_type=x.device.type, dtype=torch.bfloat16,
                             enabled=bf16):
-            feats = self.features(x)
+            feats = self.features(x, taps)
             if self.head == "none":
-                return feats.permute(0, 2, 3, 4, 1)
-            if self.head == "pool":
-                return feats.float().mean(dim=(2, 3, 4))
-            return self.conv_seg(feats).float()
+                out = feats.permute(0, 2, 3, 4, 1)
+            elif self.head == "pool":
+                out = feats.float().mean(dim=(2, 3, 4))
+            elif self.head == "seg":
+                out = self.conv_seg(feats).permute(0, 2, 3, 4, 1)
+            else:
+                out = self.conv_seg(feats).float()
+        if return_taps:
+            return out, [t.permute(0, 2, 3, 4, 1) for t in taps]
+        return out
 
 
 def image_encoder(depth=18, in_channels=1, shortcut_type="B",

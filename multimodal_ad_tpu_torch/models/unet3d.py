@@ -65,19 +65,21 @@ def _bn(c: int) -> FlaxBatchNorm3d:
 @torch.no_grad()
 def _flax_init_(model: nn.Module, generator: torch.Generator | None) -> None:
     """flax-default initialization of every conv, transposed conv, linear
-    layer and BatchNorm of `model`, drawn from `generator`."""
+    layer and BatchNorm of `model` (2-D or 3-D), drawn from `generator`."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
-            fan_in = m.weight[0].numel()  # in * kx * ky * kz; in for a linear
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            # in / groups * kernel volume; in for a linear
+            fan_in = m.weight[0].numel()
         elif isinstance(m, nn.ConvTranspose3d):
             fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
-        elif isinstance(m, nn.BatchNorm3d):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
             continue
         else:
             continue
         _lecun_normal_(m.weight, fan_in, generator)
-        nn.init.zeros_(m.bias)
+        if m.bias is not None:
+            nn.init.zeros_(m.bias)
 
 
 def _check_dtype(compute_dtype: torch.dtype) -> torch.dtype:

@@ -62,9 +62,13 @@ def class_weight_vector(labels, num_classes: int) -> np.ndarray:
 
 def _make_model(cfg: Config, model_factory, seed: int):
     """`model_factory()` if given, else the config's ResNet3D with initial
-    weights drawn from a generator seeded with `seed`."""
+    weights drawn from a generator seeded with `seed`. The factory runs
+    with the global RNG seeded with `seed` and restored afterwards, so its
+    draws depend on `seed` alone and leave the caller's stream as it was."""
     if model_factory is not None:
-        return model_factory()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return model_factory()
     return generate_model(
         model_type=cfg.model_type, model_depth=cfg.model_depth,
         resnet_shortcut=cfg.resnet_shortcut, nb_class=cfg.nb_class,

@@ -43,23 +43,37 @@ def _to_oidhw(w):
     return np.transpose(w, (4, 3, 0, 1, 2))  # DHWIO -> OIDHW
 
 
+def _bn_rows(tname: str, fpath: tuple) -> list:
+    """The four rows of one BatchNorm (scale/bias, mean/var)."""
+    return [(f"{tname}.weight", "params", fpath + ("scale",), None),
+            (f"{tname}.bias", "params", fpath + ("bias",), None),
+            (f"{tname}.running_mean", "batch_stats", fpath + ("mean",), None),
+            (f"{tname}.running_var", "batch_stats", fpath + ("var",), None)]
+
+
 def _conv_entries(torch_prefix, flax_path_conv, flax_path_bn):
     """(torch_name, flax_collection, flax_path, transform) rows for one
     conv+bn pair; `transform` maps the torch tensor to the flax layout."""
     conv, bn = torch_prefix
-    return [
-        (f"{conv}.weight", "params", flax_path_conv + ("kernel",), _to_dhwio),
-        (f"{bn}.weight", "params", flax_path_bn + ("scale",), None),
-        (f"{bn}.bias", "params", flax_path_bn + ("bias",), None),
-        (f"{bn}.running_mean", "batch_stats", flax_path_bn + ("mean",), None),
-        (f"{bn}.running_var", "batch_stats", flax_path_bn + ("var",), None),
-    ]
+    return ([(f"{conv}.weight", "params", flax_path_conv + ("kernel",), _to_dhwio)]
+            + _bn_rows(bn, flax_path_bn))
 
 
-def resnet3d_name_map(depth: int, shortcut_type: str = "B") -> list:
+def _to_flax_convtranspose(w):
+    """torch ConvTranspose3d (in, out, kx, ky, kz) -> flax ConvTranspose
+    (kx, ky, kz, in, out), flipped spatially (the inverse of
+    `_flip_convtranspose`)."""
+    return np.transpose(w[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1))
+
+
+def resnet3d_name_map(depth: int, shortcut_type: str = "B",
+                      head: str = "classifier") -> list:
     """Ordered (torch_name, collection, flax_path, transform) mapping for
     the MedicalNet ResNet backbone (conv1/bn1, layer{1..4}.{j}.conv{i}/bn{i},
-    downsample.0/1)."""
+    downsample.0/1); `transform` maps the torch tensor to the flax layout.
+    With ``head="seg"`` the seg head's rows follow: conv_seg.0 (transposed
+    conv, with bias), .1 (BN), .3 (conv), .4 (BN), .6 (conv) <-> the flax
+    SegHead_0's ConvTranspose_0, BatchNorm_0, Conv_0, BatchNorm_1, Conv_1."""
     kind, layers = DEPTH_BLOCKS[depth]
     block_name = "BasicBlock" if kind == "basic" else "Bottleneck"
     n_convs = 2 if kind == "basic" else 3
@@ -89,6 +103,15 @@ def resnet3d_name_map(depth: int, shortcut_type: str = "B") -> list:
                     (fp, f"ConvBN_{n_convs}", "BatchNorm_0"))
             in_features = out_features
             block_idx += 1
+    if head == "seg":
+        seg = ("SegHead_0",)
+        rows += [("conv_seg.0.weight", "params", seg + ("ConvTranspose_0", "kernel"),
+                  _to_flax_convtranspose),
+                 ("conv_seg.0.bias", "params", seg + ("ConvTranspose_0", "bias"), None)]
+        rows += _bn_rows("conv_seg.1", seg + ("BatchNorm_0",))
+        rows += _conv_entries(("conv_seg.3", "conv_seg.4"), seg + ("Conv_0",),
+                              seg + ("BatchNorm_1",))
+        rows.append(("conv_seg.6.weight", "params", seg + ("Conv_1", "kernel"), _to_dhwio))
     return rows
 
 
@@ -102,26 +125,28 @@ def _get_path(tree, path: tuple):
     return node
 
 
-def state_dict_from_flax(variables, depth: int, shortcut_type: str = "B"
-                         ) -> "OrderedDict[str, torch.Tensor]":
+def state_dict_from_flax(variables, depth: int, shortcut_type: str = "B",
+                         head: str = "classifier") -> "OrderedDict[str, torch.Tensor]":
     """TPU-package ResNet3D variables -> this package's ResNet3D state_dict.
 
     `variables` is {'params': ..., 'batch_stats': ...} as nested dicts of
     arrays. The classifier head (flax 'Dense_0') becomes conv_seg.3 when
-    present. Every BatchNorm also gets its num_batches_tracked buffer (0),
-    so the result loads with strict=True."""
+    present; with ``head="seg"`` the SegHead_0 becomes conv_seg.{0,1,3,4,6}.
+    Every BatchNorm also gets its num_batches_tracked buffer (0), so the
+    result loads with strict=True."""
     return _resnet3d_from_flax(variables, depth, shortcut_type,
-                               ("params", "batch_stats"))
+                               ("params", "batch_stats"), head)
 
 
-def _resnet3d_from_flax(variables, depth, shortcut_type, collections):
+def _resnet3d_from_flax(variables, depth, shortcut_type, collections, head="classifier"):
+    from_flax = {_to_dhwio: _to_oidhw, _to_flax_convtranspose: _flip_convtranspose}
     out = OrderedDict()
-    for tname, coll, fpath, tf in resnet3d_name_map(depth, shortcut_type):
+    for tname, coll, fpath, tf in resnet3d_name_map(depth, shortcut_type, head):
         if coll not in collections:
             continue
         w = np.asarray(_get_path(variables[coll], fpath), np.float32)
-        if tf is _to_dhwio:
-            w = _to_oidhw(w)
+        if tf is not None:
+            w = from_flax[tf](w)
         out[tname] = torch.from_numpy(np.array(w, order="C"))  # own copy
         if tname.endswith(".running_var"):
             out[tname[:-len("running_var")] + "num_batches_tracked"] = \
@@ -147,7 +172,7 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, model, mu, nu,
     transposed) into torch's exp_avg / exp_avg_sq, with step = count."""
     names = {id(p): n for n, p in model.named_parameters()}
     moments = [_resnet3d_from_flax({"params": m}, model.depth, model.shortcut_type,
-                                   ("params",)) for m in (mu, nu)]
+                                   ("params",), model.head) for m in (mu, nu)]
     step = float(np.asarray(count))
     for group in optimizer.param_groups:
         # torch keeps a fused or capturable optimizer's step on the device
@@ -179,7 +204,7 @@ def load_medicalnet_weights(model, state_dict: dict, verbose: bool = False):
     (model, report) with report = {'loaded', 'skipped', 'mismatched'}."""
     own = model.state_dict()
     merged, loaded, skipped, mismatched = {}, [], [], []
-    for tname, *_ in resnet3d_name_map(model.depth, model.shortcut_type):
+    for tname, *_ in resnet3d_name_map(model.depth, model.shortcut_type, model.head):
         if tname not in state_dict or tname not in own:
             skipped.append(tname)
             continue
@@ -285,3 +310,82 @@ def unet3d_classifier_state_dict_from_flax(variables) -> "OrderedDict[str, torch
     """TPU-package UNet3DClassifier variables -> this package's
     UNet3DClassifier state_dict."""
     return _state_dict_from_rows(variables, unet3d_classifier_name_map())
+
+
+def _conv_kernel_to_torch(w):
+    """flax conv kernel (*k, in / groups, out) -> torch (out, in / groups, *k),
+    2-D or 3-D."""
+    return np.transpose(w, (w.ndim - 1, w.ndim - 2, *range(w.ndim - 2)))
+
+
+def _kernel_row(tname: str, fpath: tuple) -> tuple:
+    return (f"{tname}.weight", "params", fpath + ("kernel",), _conv_kernel_to_torch)
+
+
+def densenet_name_map(block_config=(6, 12, 24, 16)) -> list:
+    """Ordered (torch_name, flax_collection, flax_path, transform) rows of
+    the DilatedDenseNet (2-D or 3-D). flax numbers each module class across
+    the whole model: DenseLayer_0.. over all blocks, Transition_0..; the
+    stem is Conv_0 / BatchNorm_0, the final norm BatchNorm_1, the
+    classifier Dense_0; inside a dense layer BatchNorm_0, Conv_0,
+    BatchNorm_1, Conv_1 (the depthwise conv) and Conv_2."""
+    rows = [_kernel_row("conv0", ("Conv_0",))] + _bn_rows("norm0", ("BatchNorm_0",))
+    layer = 0
+    for bi, n_layers in enumerate(block_config):
+        for li in range(n_layers):
+            t, f = f"block{bi}.{li}", (f"DenseLayer_{layer}",)
+            rows += _bn_rows(f"{t}.norm1", f + ("BatchNorm_0",))
+            rows.append(_kernel_row(f"{t}.conv1", f + ("Conv_0",)))
+            rows += _bn_rows(f"{t}.norm2", f + ("BatchNorm_1",))
+            rows.append(_kernel_row(f"{t}.conv2", f + ("Conv_1",)))
+            rows.append(_kernel_row(f"{t}.conv3", f + ("Conv_2",)))
+            layer += 1
+        if bi != len(block_config) - 1:
+            t, f = f"transition{bi}", (f"Transition_{bi}",)
+            rows += _bn_rows(f"{t}.norm", f + ("BatchNorm_0",))
+            rows.append(_kernel_row(f"{t}.conv", f + ("Conv_0",)))
+    rows += _bn_rows("norm_final", ("BatchNorm_1",))
+    rows += [("classifier.weight", "params", ("Dense_0", "kernel"), np.transpose),
+             ("classifier.bias", "params", ("Dense_0", "bias"), None)]
+    return rows
+
+
+def densenet_state_dict_from_flax(variables, block_config=(6, 12, 24, 16)
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package DilatedDenseNet variables ({'params', 'batch_stats'} as
+    nested dicts of arrays) -> this package's DilatedDenseNet state_dict,
+    the BatchNorms' running statistics included."""
+    return _state_dict_from_rows(variables, densenet_name_map(block_config))
+
+
+def _dense_rows(tname: str, fpath: tuple) -> list:
+    return [(f"{tname}.weight", "params", fpath + ("kernel",), np.transpose),
+            (f"{tname}.bias", "params", fpath + ("bias",), None)]
+
+
+def mshyper_name_map(n_scales: int = 2, use_attention: bool = True) -> list:
+    """Ordered (torch_name, flax_collection, flax_path, transform) rows of
+    MSHyperModel: flax Dense kernels (in, out) become nn.Linear weights
+    (out, in); a strided flax Conv kernel (w, in, out) a Conv1d weight
+    (out, in, w)."""
+    p = ("PyramidConstruct_0",)
+    rows = _dense_rows("pyramid.embed", p + ("Dense_0",))
+    for i in range(n_scales):
+        rows += [(f"pyramid.convs.{i}.weight", "params", p + (f"Conv_{i}", "kernel"),
+                  _conv_kernel_to_torch),
+                 (f"pyramid.convs.{i}.bias", "params", p + (f"Conv_{i}", "bias"), None)]
+    if use_attention:
+        a = ("HyperedgeAttention_0",)
+        rows += _dense_rows("attention.query", a + ("Dense_0",))
+        rows += _dense_rows("attention.key", a + ("Dense_1",))
+    for tname, fname in (("node_out", "Dense_0"), ("out_tran", "out_tran"),
+                         ("trunk", "trunk"), ("mix", "mix")):
+        rows += _dense_rows(tname, (fname,))
+    return rows
+
+
+def mshyper_state_dict_from_flax(variables, n_scales: int = 2, use_attention: bool = True
+                                 ) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package MSHyperModel variables ({'params': ...}) -> this
+    package's MSHyperModel state_dict (`n_scales` = len(window_sizes))."""
+    return _state_dict_from_rows(variables, mshyper_name_map(n_scales, use_attention))

@@ -6,7 +6,10 @@ Runs the comparisons of tests/test_torch_port_*.py on the same seeded
 inputs and prints the largest absolute difference of each, one line per
 comparison, so PERF.md can quote measured errors rather than the tests'
 bounds. Needs both jax and torch; runs in a few minutes. `--only int8`
-runs the int8 serving slice's comparisons alone.
+runs the int8 serving slice's comparisons alone; `--only densenet`,
+`--only encoder` and `--only hypergraph` those of the DenseNet (and its
+trainer's BN statistics), of the encoder features with the seg head and
+the stage taps, and of MSHyper.
 """
 
 from __future__ import annotations
@@ -77,8 +80,12 @@ def report(name, a, b):
 
 
 def main():
-    if sys.argv[1:] == ["--only", "int8"]:
-        int8_parity()
+    only = {"int8": int8_parity, "densenet": densenet_parity, "encoder": encoder_parity,
+            "hypergraph": hypergraph_parity}
+    if sys.argv[1:2] == ["--only"]:
+        if len(sys.argv) != 3 or sys.argv[2] not in only:
+            raise SystemExit(f"usage: port_parity_cpu.py [--only {'|'.join(only)}]")
+        only[sys.argv[2]]()
         return
     rng = np.random.default_rng(42)
     # K1 plain version vs the Pallas kernel (interpret) and the XLA twin
@@ -201,6 +208,9 @@ def main():
     training_parity()
     unet_training_parity()
     int8_parity()
+    densenet_parity()
+    encoder_parity()
+    hypergraph_parity()
 
 
 def training_parity():
@@ -503,6 +513,134 @@ def int8_parity():
                              device="cpu").quantize_int8(cal)
     report("EnsemblePredictor.quantize_int8 (2 folds, 5 vols, bs 4)",
            port.predict_proba(vols), ref)
+
+
+
+def densenet_parity():
+    """The DenseNet: eval-mode logits in 3-D, 2-D and at odd widths, and one
+    train-mode forward's BN statistics (tests/test_torch_port_densenet.py's
+    inputs)."""
+    from multimodal_ad_tpu.models.densenet import DilatedDenseNet as JaxDenseNet
+    from multimodal_ad_tpu_torch.models.densenet import DilatedDenseNet
+    from multimodal_ad_tpu_torch.utils.torch_weights import densenet_state_dict_from_flax
+
+    small = dict(growth=4, block_config=(2, 2), dilations=(1, 2), init_features=8)
+    cases = {"3d 16^3": (dict(small, spatial_dims=3, in_channels=1), (16, 16, 16, 1)),
+             "2d 32^2": (dict(small, spatial_dims=2, in_channels=3, num_classes=3),
+                         (32, 32, 3)),
+             "odd widths (g 6, init 10)": (dict(growth=6, block_config=(3,), dilations=(1,),
+                                                init_features=10, spatial_dims=3,
+                                                in_channels=1), (16, 16, 16, 1))}
+    for tag, (kw, shape) in cases.items():
+        jm = JaxDenseNet(dtype=jnp.float32, **kw)
+        v = random_flax_variables(jm, shape, seed=0)
+        tm = DilatedDenseNet(compute_dtype=torch.float32, **kw)
+        tm.load_state_dict(densenet_state_dict_from_flax(v, kw["block_config"]))
+        x = np.random.default_rng(1).normal(size=(2, *shape)).astype(np.float32)
+        ref = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
+        with torch.no_grad():
+            report(f"DenseNet logits, {tag}", tm.eval()(torch.from_numpy(x)).numpy(), ref)
+        if tag.startswith("3d"):
+            xb = np.random.default_rng(2).normal(size=(4, *shape)).astype(np.float32)
+            _, upd = jm.apply(v, jnp.asarray(xb), train=True, mutable=["batch_stats"],
+                              rngs={"dropout": jax.random.PRNGKey(0)})
+            tm.train()(torch.from_numpy(xb))
+            sd = {k: t.numpy() for k, t in tm.state_dict().items()}
+            ours = densenet_state_dict_from_flax({"params": v["params"], **upd},
+                                                 kw["block_config"])
+            rel = max(float(np.abs(sd[k] / ours[k].numpy() - 1).max())
+                      for k in ours if ".running_" in k)
+            print(f"{'DenseNet train-mode BN statistics, 3d: max rel':58s} {rel:.3e}")
+
+
+def encoder_parity():
+    """Encoder features (heads none and pool), the stage taps and the seg
+    head (float32; bf16 relative to the output's largest magnitude)
+    (tests/test_torch_port_encoder.py's inputs)."""
+    from multimodal_ad_tpu.eval.features import extract_encoder_features as jax_enc
+    from multimodal_ad_tpu_torch.eval.features import extract_encoder_features
+
+    shape = (20, 24, 20)
+    with tempfile.TemporaryDirectory() as root:
+        csv_path, mri_dir = make_adni_dir(root, n_per_class=6, classes=("AD", "CN"),
+                                          shape=shape, seed=0)
+        records = ADNIManifest(csv_path, mri_dir, "ADCN", verbose=False).data_dict[:5]
+        v = random_flax_variables(JaxResNet3D(depth=10, head="none", dtype=jnp.float32),
+                                  (*shape, 1), seed=5)
+        for head in ("none", "pool"):
+            ref_f, ref_s = jax_enc(records, os.path.join(root, f"jax_{head}"), depth=10,
+                                   global_pool=head == "pool", variables=v, batch_size=8,
+                                   mesh=make_mesh({"data": -1}), num_threads=2,
+                                   input_shape=shape)
+            tm = ResNet3D(depth=10, head=head, compute_dtype=torch.float32)
+            tm.load_state_dict(state_dict_from_flax(v, 10))
+            f, s_path = extract_encoder_features(records, os.path.join(root, f"port_{head}"),
+                                                 model=tm, batch_size=8, num_threads=2,
+                                                 device="cpu")
+            rows_a, rows_b = (list(csv.reader(open(p))) for p in (f, ref_f))
+            assert rows_a[0] == rows_b[0] and [r[0] for r in rows_a] == [r[0] for r in rows_b]
+            assert open(s_path).read() == open(ref_s).read()
+            report(f"adni_features.csv, head {head} (5 subjects)",
+                   np.asarray([r[1:-1] for r in rows_a[1:]], float),
+                   np.asarray([r[1:-1] for r in rows_b[1:]], float))
+    x = np.random.default_rng(1).normal(size=(2, *shape, 1)).astype(np.float32)
+    v = random_flax_variables(JaxResNet3D(depth=10, head="seg", num_seg_classes=2,
+                                          dtype=jnp.float32), (*shape, 1), seed=4)
+    for jdt, tdt, tag in ((jnp.float32, torch.float32, "float32"),
+                          (jnp.bfloat16, torch.bfloat16, "bf16")):
+        jm = JaxResNet3D(depth=10, head="seg", num_seg_classes=2, dtype=jdt)
+        ref, inter = jm.apply(v, jnp.asarray(x), mutable=["intermediates"])
+        ref = np.asarray(ref.astype(jnp.float32))
+        tm = ResNet3D(depth=10, head="seg", num_seg_classes=2, compute_dtype=tdt).eval()
+        tm.load_state_dict(state_dict_from_flax(v, 10, head="seg"))
+        with torch.no_grad():
+            out, taps = tm(torch.from_numpy(x), return_taps=True)
+        out = out.float().numpy()
+        report(f"seg head output {tag} (2, 6, 6, 6, 2)", out, ref)
+        print(f"{'  max |d| / the output largest magnitude':58s} "
+              f"{np.abs(out - ref).max() / np.abs(ref).max():.3e}")
+        if tag == "float32":
+            for i, (a, b) in enumerate(zip(taps, jax.tree_util.tree_leaves(
+                    inter["intermediates"]))):
+                report(f"  stage {i + 1} tap {tuple(b.shape)}", a.numpy(), b)
+
+
+def hypergraph_parity():
+    """MSHyper: the incidence matrix, hypergraph_conv with and without
+    attention scores, and forwards with and without attention at the
+    tests' size and at the JAX defaults (seq 96, pred 24, 7 channels)."""
+    from multimodal_ad_tpu.models import hypergraph as jhg
+    from multimodal_ad_tpu_torch.models import hypergraph as thg
+    from multimodal_ad_tpu_torch.utils.torch_weights import mshyper_state_dict_from_flax
+
+    H = jhg.build_pyramid_incidence(96, (4, 4), 3)
+    print(f"{'incidence (96, (4, 4), 3): equal':58s} "
+          f"{np.array_equal(H, thg.build_pyramid_incidence(96, (4, 4), 3))}")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, H.shape[0], 5)).astype(np.float32)
+    sc = rng.uniform(size=(2, *H.shape)).astype(np.float32)
+    for tag, scores in (("plain", None), ("attention scores", sc)):
+        ref = jhg.hypergraph_conv(jnp.asarray(x), jnp.asarray(H),
+                                  None if scores is None else jnp.asarray(scores))
+        ours = thg.hypergraph_conv(torch.from_numpy(x), torch.from_numpy(H),
+                                   None if scores is None else torch.from_numpy(scores))
+        report(f"hypergraph_conv, {tag}", ours.numpy(), ref)
+    for seq, pred, ch, d_model, batch in ((16, 4, 3, 8, 2), (96, 24, 7, 64, 4)):
+        for att in (False, True):
+            kw = dict(seq_len=seq, pred_len=pred, channels=ch, d_model=d_model,
+                      use_attention=att)
+            jm = jhg.MSHyperModel(**kw)
+            xs = (rng.normal(size=(batch, seq, ch)) * 3 + 1).astype(np.float32)
+            shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(xs))
+            v = jax.tree_util.tree_map(
+                lambda s: (rng.normal(size=s.shape) / np.sqrt(max(int(np.prod(s.shape[:-1])),
+                                                                  1))).astype(np.float32),
+                shapes)
+            tm = thg.MSHyperModel(**kw)
+            tm.load_state_dict(mshyper_state_dict_from_flax(v, 2, att))
+            with torch.no_grad():
+                report(f"MSHyper seq {seq} d_model {d_model} attention {att}",
+                       tm(torch.from_numpy(xs)).numpy(), jm.apply(v, jnp.asarray(xs)))
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ epilogues, the block output's included, on grids where whole tiles skip
 taps and at odd channel counts), as do three fp32 train steps of the
 ResNet and of the U-Net classifier, the training epoch iterator, the
 host-planned augmentation, the int8 ensemble and depth-34 and depth-50
-int8 folds. This file imports no JAX, so it also runs on the card's
-machine."""
+int8 folds, and the DenseNet train steps, encoder features, the seg head,
+MSHyper and the native NIfTI decoder on the card's machine. This file
+imports no JAX, so it also runs on the card's machine."""
 
 import os
 import pkgutil
@@ -187,6 +188,50 @@ def test_int8_serving_runs_without_sklearn(tmp_path):
     assert res.stdout.strip().endswith("ok")
 
 
+def test_image_side_tools_run_without_sklearn_pandas_matplotlib_or_tensorboard(tmp_path):
+    """cli.train_densenet, extract_encoder_features, cli.pvalue and
+    cli.roi_visualize (queries and the HTML viewer, no --mri) run end to
+    end on the CPU with JAX, sklearn, pandas, matplotlib and tensorboard
+    blocked, as on the card's machine. scipy takes a 'jax' entry of
+    sys.modules for the module, so for cli.pvalue that one entry goes and
+    the run then checks that nothing imported JAX."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'multimodal_ad_tpu', 'sklearn',"
+        " 'pandas', 'matplotlib', 'tensorboard'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from multimodal_ad_tpu_torch.cli import pvalue, roi_visualize, train_densenet\n"
+        "from multimodal_ad_tpu_torch.data.adni import ADNIManifest\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir, make_atlas\n"
+        "from multimodal_ad_tpu_torch.eval.features import extract_encoder_features\n"
+        "from multimodal_ad_tpu_torch.utils import nifti\n"
+        f"root = {str(tmp_path)!r}\n"
+        "csv_path, mri = make_adni_dir(root, n_per_class=5, shape=(12, 12, 12))\n"
+        "train_densenet.main(['label_file=' + csv_path, 'mri_dir=' + mri, 'num_epochs=1',"
+        " 'batch_size=4', 'n_splits=2', 'compute_dtype=float32', 'loader_threads=2',"
+        " 'checkpoint_dir=' + root + '/ckpt', '--device', 'cpu', '--growth', '4',"
+        " '--blocks', '2', '2'])\n"
+        "recs = ADNIManifest(csv_path, mri, verbose=False).data_dict[:3]\n"
+        "extract_encoder_features(recs, root + '/enc', depth=10, batch_size=2,"
+        " num_threads=2, device='cpu')\n"
+        "del sys.modules['jax']\n"
+        "pvalue.main(['--a', '0.9', '0.8', '0.85', '--b', '0.95', '0.9', '0.93'])\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"
+        "nifti.save(root + '/atlas.nii', make_atlas((12, 12, 12), 3).astype(np.int16))\n"
+        "roi_visualize.main(['--atlas', root + '/atlas.nii', '--query-voxel', '6', '6', '6',"
+        " '--query-world', '1', '2', '3', '--html', root + '/atlas.html'])\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert "paired t-test:" in res.stdout and "voxel (6, 6, 6) ->" in res.stdout
+    for path in ("ckpt/cv_results.csv", "enc/adni_features.csv",
+                 "enc/feature_map_shapes.csv", "atlas.html"):
+        assert os.path.isfile(tmp_path / path), path
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -283,6 +328,23 @@ def test_int8_serving_raises_without_a_card(no_cuda, tmp_path):
                          config=Config(model_depth=10).to_dict())
     with pytest.raises(RuntimeError, match="CUDA"):
         EnsemblePredictor.from_checkpoint_dir(str(tmp_path)).quantize_int8(vols)
+
+
+def test_image_side_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from multimodal_ad_tpu_torch.cli.train_densenet import main
+    from multimodal_ad_tpu_torch.eval.features import extract_encoder_features
+
+    labels = str(tmp_path / "labels.csv")
+    with open(labels, "w") as f:
+        f.write("Subject_ID,Group\n" + "".join(f"S{i},{'AD' if i % 2 else 'CN'}\n"
+                                               for i in range(10)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([f"label_file={labels}", f"mri_dir={tmp_path}",
+              f"checkpoint_dir={tmp_path / 'ckpt'}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_encoder_features([], str(tmp_path / "enc"))
+    assert not os.path.exists(tmp_path / "ckpt")
+    assert not os.path.exists(tmp_path / "enc")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -855,3 +917,159 @@ def test_int8_ensemble_on_the_card_matches_the_host(cuda):
     for a, b in zip(taps_c, taps_h):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(out_c.cpu(), out_h)
+
+
+def _densenet_three_steps(device):
+    """Three fp32 train steps of a seeded narrow DenseNet-3D at 24x28x24,
+    B = 4 (one padded row), dropout 0; returns the losses and the
+    state_dict."""
+    from multimodal_ad_tpu_torch.models.densenet import DilatedDenseNet
+    from multimodal_ad_tpu_torch.train import loop
+
+    model = DilatedDenseNet(growth=8, block_config=(2, 3, 2), dilations=(1, 2, 4),
+                            init_features=16, dropout_rate=0.0,
+                            compute_dtype=torch.float32,
+                            generator=torch.Generator().manual_seed(0)).to(device)
+    state = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20))
+    g = torch.Generator().manual_seed(1)
+    cw = torch.tensor([0.3, 0.7], device=device)
+    losses = []
+    for _ in range(3):
+        batch = {"image": (torch.randn((4, 24, 28, 24, 1), generator=g) * 2 + 1).to(device),
+                 "label": torch.tensor([0, 1, 1, 0], device=device),
+                 "mask": torch.tensor([1.0, 1.0, 1.0, 0.0], device=device)}
+        loss, _ = loop.train_step(state, batch, cw)
+        losses.append(float(loss))
+    return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_densenet_train_steps_on_the_card_match_the_host(cuda):
+    """As the ResNet's: fp32, TF32 off; losses and BN statistics within
+    1e-3, parameters within 6 lr and 99.9 % of them within 1e-3."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+
+    resolve_device("cuda")
+    card_losses, card = _densenet_three_steps(cuda)
+    host_losses, host = _densenet_three_steps(torch.device("cpu"))
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-3, atol=1e-3)
+    deltas = []
+    for name, v in host.items():
+        if ".running_" in name:
+            torch.testing.assert_close(card[name], v, rtol=1e-3, atol=1e-3, msg=name)
+        elif v.is_floating_point():
+            deltas.append((card[name] - v).abs().flatten())
+    d = torch.cat(deltas)
+    assert float(d.max()) <= 6e-3
+    assert float((d <= 1e-3).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["none", "pool"])
+def test_encoder_features_on_the_card_match_the_host(cuda, tmp_path, head):
+    """extract_encoder_features of a seeded ResNet-10 on the card (K1
+    launched once a batch) against the host: equal headers, subjects,
+    labels and shape files, values within rtol = atol = 1e-3."""
+    import csv
+
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.eval.features import extract_encoder_features
+
+    csv_path, mri = make_adni_dir(str(tmp_path), n_per_class=3, shape=(20, 24, 20))
+    recs = ADNIManifest(csv_path, mri, verbose=False).data_dict
+    out = {}
+    before = tfg.gather_normalize.launches
+    for dev in ("cuda", "cpu"):
+        f, s = extract_encoder_features(recs, str(tmp_path / dev), depth=10,
+                                        global_pool=head == "pool", batch_size=4,
+                                        num_threads=2, device=dev)
+        with open(f) as fh, open(s) as sh:
+            out[dev] = (list(csv.reader(fh)), sh.read())
+        if dev == "cuda":
+            assert tfg.gather_normalize.launches - before == 2  # batches 4 + 2
+    (card, card_s), (host, host_s) = out["cuda"], out["cpu"]
+    assert card_s == host_s
+    assert card[0] == host[0] and [r[0] for r in card] == [r[0] for r in host]
+    assert [r[-1] for r in card] == [r[-1] for r in host]
+    np.testing.assert_allclose(np.asarray([r[1:-1] for r in card[1:]], float),
+                               np.asarray([r[1:-1] for r in host[1:]], float),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_head_on_the_card_matches_the_host(cuda, dtype):
+    """A ResNet-18 with head 'seg' (3 classes) at 40x48x40, B = 2: float32
+    within rtol = atol = 1e-3 and the same taps; bf16 within 3e-2 of the
+    output's largest magnitude (cuDNN and the host round bf16 at other
+    points)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D
+
+    resolve_device("cuda")
+    model = ResNet3D(depth=18, head="seg", num_seg_classes=3, compute_dtype=dtype,
+                     generator=torch.Generator().manual_seed(2)).eval()
+    x = torch.randn((2, 40, 48, 40, 1), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        host, host_taps = model(x, return_taps=True)
+        card, card_taps = model.to(cuda)(x.to(cuda), return_taps=True)
+    assert card.shape == host.shape == (2, 10, 12, 10, 3) and card.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(card.cpu(), host, rtol=1e-3, atol=1e-3)
+        for a, b in zip(card_taps, host_taps):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+    else:
+        scale = float(host.float().abs().max())
+        assert float((card.cpu().float() - host.float()).abs().max()) <= 3e-2 * scale
+
+
+@pytest.mark.cuda
+def test_mshyper_on_the_card_matches_the_host(cuda):
+    """MSHyper at the JAX defaults (d_model 64, windows (4, 4), inner 3,
+    attention) on (32, 96, 7) -> (32, 24, 7): forward and the gradients of
+    one backward, card against host, fp32 (TF32 off): the output within
+    1e-4 of its largest magnitude, the gradients within 1e-4 of the largest
+    gradient (the attention key's bias has a gradient that is 0 in exact
+    arithmetic, ~1e-10 in float32, so it is no scale of its own)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models.hypergraph import MSHyperModel
+
+    resolve_device("cuda")
+    torch.manual_seed(0)
+    host = MSHyperModel(96, 24, 7)
+    card = MSHyperModel(96, 24, 7).to(cuda)
+    card.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.cumsum(torch.randn((32, 120, 7), generator=g), dim=1)
+    inp, target = x[:, :96], x[:, 96:]
+    grads = {}
+    for name, m, dev in (("host", host, "cpu"), ("card", card, cuda)):
+        y = m(inp.to(dev))
+        ((y - target.to(dev)) ** 2).mean().backward()
+        grads[name] = (y.detach().cpu(), [p.grad.cpu() for p in m.parameters()])
+    (c_out, c_grads), (h_out, h_grads) = grads["card"], grads["host"]
+    assert float((c_out - h_out).abs().max()) <= 1e-4 * float(h_out.abs().max())
+    scale = max(float(g.abs().max()) for g in h_grads)
+    for a, b in zip(c_grads, h_grads):
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_native_decoder_on_the_cards_machine(cuda, tmp_path):
+    """On the card's machine the native decoder builds, and its volumes,
+    per file and in batches, are bit-equal to the Python reader's."""
+    from multimodal_ad_tpu_torch.data.pipeline import read_volume
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.utils import native_loader, nifti
+
+    assert native_loader.available(), native_loader.build_error()
+    _, mri = make_adni_dir(str(tmp_path), n_per_class=2, shape=(91, 109, 91))
+    paths = sorted(os.path.join(mri, f) for f in os.listdir(mri))
+    batch = native_loader.NativeBatchDecoder((91, 109, 91), n_threads=4).decode(paths)
+    for p, b in zip(paths, batch):
+        vol, reader = read_volume(p)
+        ref = nifti.load(p)
+        assert reader == "native"
+        assert np.array_equal(vol.view(np.uint32), ref.view(np.uint32))
+        assert np.array_equal(b.view(np.uint32), ref.view(np.uint32))

@@ -125,7 +125,7 @@ def test_heads_and_channel_check():
     with pytest.raises(ValueError):
         ResNet3D(depth=11)
     with pytest.raises(ValueError):
-        ResNet3D(head="seg")
+        ResNet3D(head="segmentation")  # no such head
 
 
 def test_medicalnet_partial_intersection(tmp_path):

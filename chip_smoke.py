@@ -134,7 +134,30 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    of each tensor's spread), the train step's time; `cli.pvalue` and
    `cli.roi_visualize --query-voxel --query-world --html` over phase 6's
    atlas (no --mri: the card's machine has no matplotlib);
-15. one JSON line {"kernels": [...]} and, last, the device line.
+15. tabular in-context inference, with sklearn, pandas, flax and msgpack
+   blocked, on a seeded synthetic clinical table written by `make_table`
+   (580 rows, 14 leading columns and 156 features, 6 of them string
+   categoricals, classes CN / SMCI / PMCI / AD, 7.3 % of the numeric cells
+   blank and two columns 95 % blank): (a) the three bundled assets read by
+   the port's msgpack reader (leaves, parameters, read time); (b) the
+   full-width classifier network (V = 8 views, a 512-row bucket with 464
+   valid rows, 116 queries, the categorical mask) on the card against the
+   host CPU (logits, query and context states and the penultimate tap
+   within 1e-4 of their spread), its time (CUDA events, median of 25)
+   beside its FLOP bound at the fp32 rate, the attention alone against
+   SDPA (comparison only) and the device kernels a forward launches; (c)
+   `ICLClassifier()` with every default on the 464 / 116 split: fit and
+   predict times, the chosen preprocess, test ACC and macro AUC, and the
+   same fit on the host (the same preprocess, probabilities within 1e-4,
+   predictions equal where the top two differ by more than 1e-3); (d)
+   `ICLRegressor()` on a target drawn from the table's columns: mean,
+   median and quantiles on the card against the host within 1e-4 of the
+   target's spread; (e) `tabel_encoder_multi` with the default
+   `EnsembleICLEmbedder` (6 members x 4 views, n_fold 5, test 0.2): wall
+   time, 36 forwards, CSV shapes (1,776 embedding columns), finite values,
+   a second run byte-identical, the wall split into host work, card
+   forwards and CSV writing, and the card's idle share (a profile);
+16. one JSON line {"kernels": [...]} and, last, the device line.
 
 Every streamed path of phases 7, 9 (cli.train_unet3d), 10 and 13 prints
 VolumeBatcher's decodes by reader and fails unless they are all native;
@@ -148,6 +171,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1527,6 +1551,350 @@ def mshyper_and_tools_phase(torch, dev, card, work, atlas_nii, atlas_lut):
     return out
 
 
+TAB_CLASSES = ["CN", "SMCI", "PMCI", "AD"]
+TAB_ROWS = 580  # the 0.2 test split leaves 464 training rows
+TAB_FEATURES = 156  # 6 of them string categoricals, after 14 leading columns
+TAB_CATEGORICAL = 6
+TAB_BLANK = 0.073  # share of the numeric feature cells left blank
+TAB_SPARSE_BLANK = 0.95  # two columns this empty
+TAB_VIEWS, TAB_BUCKET, TAB_QUERIES = 8, 512, 116  # the classifier's forward
+
+
+def icl_forward_flops(cfg, views, n_ctx, n_qry):
+    """Multiply-add FLOPs (2 per MAC) of one ICLTransformer forward over
+    `views` tasks: feature and categorical projections of every token, per
+    layer the q/k/v/out projections, scores, the weighted sum and the MLP,
+    and the class head on the queries; elementwise work is not counted."""
+    t, d, f, ff = n_ctx + n_qry, cfg.d_model, cfg.max_features, cfg.d_ff
+    proj = 2 * t * f * d * (2 if cfg.cat_input else 1)
+    layer = 2 * t * d * d * 4 + 2 * 2 * t * t * d + 2 * 2 * t * d * ff
+    head = 2 * n_qry * d * cfg.max_classes
+    return views * (proj + cfg.n_layers * layer + head)
+
+
+class _PathTimer:
+    """Wall time spent inside chosen callables (a device sync closes each
+    forward), and their call counts; the originals come back on exit."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets  # {label: (owner, attr, sync)}
+        self.seconds = {k: 0.0 for k in targets}
+        self.calls = {k: 0 for k in targets}
+
+    def __enter__(self):
+        self.saved = {}
+        for label, (owner, attr, sync) in self.targets.items():
+            orig = getattr(owner, attr)
+            self.saved[label] = orig
+
+            def wrapped(*a, _orig=orig, _label=label, _sync=sync, **kw):
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                if _sync:
+                    self.torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                self.calls[_label] += 1
+                return out
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr, _) in self.targets.items():
+            setattr(owner, attr, self.saved[label])
+
+
+def make_clinical_table(path):
+    """The phase's synthetic clinical table: make_table's draws at the
+    reference's shape, then seeded blanks (7.3 % of the numeric feature
+    cells, two columns 95 % blank), written as CSV."""
+    from multimodal_ad_tpu_torch.data.synthetic import make_table
+    from multimodal_ad_tpu_torch.data.tabular import write_table
+
+    cols = make_table(n=TAB_ROWS, n_features=TAB_FEATURES, classes=tuple(TAB_CLASSES),
+                      seed=SEED, n_categorical=TAB_CATEGORICAL)
+    rng = np.random.default_rng(SEED + 15)
+    numeric = [c for c in cols if c.startswith("feat")]
+    sparse = numeric[:2]
+    # the rest blank at the rate that brings the whole to TAB_BLANK
+    rate = (TAB_BLANK * len(numeric) - TAB_SPARSE_BLANK * len(sparse)) / (
+        len(numeric) - len(sparse))
+    blanks = 0
+    for c in numeric:
+        v = cols[c].astype(np.float32)
+        hole = rng.random(TAB_ROWS) < (TAB_SPARSE_BLANK if c in sparse else rate)
+        v[hole] = np.nan
+        cols[c] = v
+        blanks += int(hole.sum())
+    write_table(path, cols)
+    return blanks / (len(numeric) * TAB_ROWS)
+
+
+def tabular_phase(torch, dev, card, work):
+    """Phase 15: tabular in-context inference (the classifier, regressor and
+    embedder assets at full width) on the card against the host."""
+    from multimodal_ad_tpu_torch.data.tabular import load_adni_table
+    from multimodal_ad_tpu_torch.tabular import pipeline
+    from multimodal_ad_tpu_torch.tabular.estimator import train_test_split
+    from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state, tree_leaves
+    from multimodal_ad_tpu_torch.tabular.icl import (ICLClassifier, ICLConfig,
+                                                     ICLTransformer, _zscore_by_ctx,
+                                                     attention_mask, default_asset_path,
+                                                     masked_attention)
+    from multimodal_ad_tpu_torch.tabular.embedding import embedder_asset_path
+    from multimodal_ad_tpu_torch.tabular.icl_regression import default_reg_asset_path
+    from multimodal_ad_tpu_torch.tabular.regression import ICLRegressor
+    from multimodal_ad_tpu_torch.train.metrics import calculate_metrics_multiclass
+    from multimodal_ad_tpu_torch.utils.torch_weights import icl_state_dict_from_flax
+
+    import torch.nn.functional as F
+
+    # the card's machine has none of these; hold the path to that here too
+    for name in ("sklearn", "pandas", "flax", "msgpack"):
+        sys.modules[name] = None
+    out = {}
+    t_phase = time.time()
+    log("== 15. tabular in-context inference")
+    tab_dir = os.path.join(work, "tabular")
+    os.makedirs(tab_dir, exist_ok=True)
+    table = os.path.join(tab_dir, "ADNI_Tabel.csv")
+    blank = make_clinical_table(table)
+    log(f"table: {TAB_ROWS} rows, 14 leading columns + {TAB_FEATURES} features "
+        f"({TAB_CATEGORICAL} string categoricals), classes {TAB_CLASSES}; "
+        f"{blank:.2%} of the numeric feature cells blank, two columns "
+        f"{TAB_SPARSE_BLANK:.0%} blank")
+
+    # (a) the assets
+    trees = {}
+    for label, path, leaves, n_params in (
+            ("classifier", default_asset_path(), 107, 4_892_426),
+            ("embedder", embedder_asset_path(), 107, 4_892_426),
+            ("regression", default_reg_asset_path(), 105, 4_797_472)):
+        t0 = time.perf_counter()
+        tree = read_state(path)
+        s = time.perf_counter() - t0
+        lv = tree_leaves(tree)
+        count = sum(v.size for _, v in lv)
+        dtypes = sorted({str(v.dtype) for _, v in lv})
+        log(f"  (a) {label:10s} {os.path.basename(path)}: {len(lv)} leaves, "
+            f"{count:,} parameters, {dtypes}, read in {s * 1e3:.1f} ms")
+        check(len(lv) == leaves and count == n_params,
+              f"{label} asset: {len(lv)} leaves / {count} parameters")
+        out[f"asset_{label}_read_ms"] = s * 1e3
+        trees[label] = tree
+
+    # (b) the full-width forward, card against host
+    cfg = ICLConfig()
+    sd = icl_state_dict_from_flax(trees["classifier"], cfg)
+    nets = {}
+    for where in ("cpu", "card"):
+        net = ICLTransformer(cfg).eval()
+        net.load_state_dict(sd)
+        nets[where] = net.to("cpu" if where == "cpu" else dev)
+    g = np.random.default_rng(SEED + 16)
+    n_test = math.ceil(0.2 * TAB_ROWS)
+    n_valid = min(TAB_ROWS - n_test, TAB_BUCKET)  # the training rows of the split
+    x_ctx = g.normal(size=(TAB_VIEWS, TAB_BUCKET, cfg.max_features)).astype(np.float32)
+    x_ctx[:, n_valid:] = 0
+    x_ctx[:, :, TAB_FEATURES:] = 0  # the padded feature columns
+    y_ctx = g.integers(0, 4, (TAB_VIEWS, TAB_BUCKET))
+    mask = np.zeros((TAB_VIEWS, TAB_BUCKET), np.float32)
+    mask[:, :n_valid] = 1
+    x_qry = g.normal(size=(TAB_VIEWS, TAB_QUERIES, cfg.max_features)).astype(np.float32)
+    x_qry[:, :, TAB_FEATURES:] = 0
+    cat = np.zeros((TAB_VIEWS, cfg.max_features), np.float32)
+    cat[:, [3, 40, 77, 100, 121, 150]] = 1.0
+    host_in = [torch.from_numpy(a) for a in (x_ctx, y_ctx, mask, x_qry, cat)]
+    card_in = [a.to(dev) for a in host_in]
+
+    def fwd(net, ins):
+        xc, yc, m, xq, c = ins
+        xc, xq = _zscore_by_ctx(xc, xq, m)
+        return net(xc, yc, m, xq, c, return_penult=True)
+
+    with torch.inference_mode():
+        ref = fwd(nets["cpu"], host_in)
+        got = [t.cpu() for t in fwd(nets["card"], card_in)]
+    errs = {}
+    for name, a, b in zip(("logits", "qry_emb", "ctx_emb", "h_penult"), got, ref):
+        spread = float(b.abs().max())
+        errs[name] = float((a - b).abs().max())
+        log(f"  (b) {name:8s} {tuple(b.shape)} card vs host max |d| {errs[name]:.3g}, "
+            f"spread {spread:.4g} (bound 1e-4 of the spread)")
+        check(errs[name] <= 1e-4 * spread, f"full-width forward {name}: {errs[name]}")
+    out["forward_card_vs_host"] = errs
+    flops = icl_forward_flops(cfg, TAB_VIEWS, TAB_BUCKET, TAB_QUERIES)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    with torch.inference_mode():
+        fwd_ms = time_cuda(torch, lambda: fwd(nets["card"], card_in))
+    log(f"  (b) forward V={TAB_VIEWS}, N={TAB_BUCKET}, M={TAB_QUERIES}: {fwd_ms:.3f} ms "
+        f"(CUDA events, median of 25) against {flops / 1e9:.2f} GFLOP / 67 TFLOP/s "
+        f"= {bound_ms:.3f} ms: {bound_ms / fwd_ms:.1%} of the fp32 bound")
+    out.update(forward_ms=fwd_ms, forward_gflop=flops / 1e9, forward_bound_ms=bound_ms)
+    # the attention alone, explicit (the port's) against SDPA, at one layer's shape
+    blk = nets["card"].blocks[0]
+    with torch.inference_mode():
+        h = torch.randn((TAB_VIEWS, TAB_BUCKET + TAB_QUERIES, cfg.d_model), device=dev)
+        q, k, v = blk.attn.heads(h)
+        allowed = attention_mask(card_in[2], TAB_QUERIES)
+        explicit = masked_attention(q, k, v, allowed)
+        sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=allowed[:, None], scale=1.0)
+        att_err = float((explicit - sdpa).abs().max())
+        att_ms = time_cuda(torch, lambda: masked_attention(q, k, v, allowed))
+        sdpa_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed[:, None], scale=1.0))
+    log(f"  (b) attention of one layer (8 heads, T={TAB_BUCKET + TAB_QUERIES}): explicit "
+        f"{att_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms (comparison only; max |d| {att_err:.3g})")
+    out.update(attention_ms=att_ms, attention_sdpa_ms=sdpa_ms, attention_sdpa_max_d=att_err)
+    with torch.inference_mode():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fwd(nets["card"], card_in)
+            torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if device_us(e) > 0]
+    n_kernels = sum(e.count for e in rows)
+    dev_ms = sum(device_us(e) for e in rows) / 1e3
+    log(f"  (b) one forward launches {n_kernels} device kernels, {dev_ms:.3f} ms of device "
+        "time; by kernel:")
+    for e in sorted(rows, key=device_us, reverse=True)[:8]:
+        log(f"      {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    out.update(forward_kernels=n_kernels, forward_device_ms=dev_ms)
+    del nets, card_in
+
+    # (c) ICLClassifier() with every default on the 464/116 split
+    X, y, _ = load_adni_table(table, label_col="Group", classes=TAB_CLASSES, start_col=14)
+    X_tr, X_te, y_tr, y_te = train_test_split(X, y, test_size=0.2, random_state=42,
+                                              stratify=y)
+    log(f"  (c) X {X.shape}, {np.isnan(X).mean():.2%} NaN; split {len(X_tr)} / {len(X_te)}")
+    t0 = time.perf_counter()
+    clf = ICLClassifier().fit(X_tr, y_tr)
+    fit_s = time.perf_counter() - t0
+    proba = clf.predict_proba(X_te)
+    pred_ms = statistics.median(
+        _timed_ms(lambda: clf.predict_proba(X_te)) for _ in range(5))
+    m = calculate_metrics_multiclass(y_te, clf.classes_[proba.argmax(1)], proba)
+    t0 = time.perf_counter()
+    host = ICLClassifier(device="cpu").fit(X_tr, y_tr)
+    host_fit_s = time.perf_counter() - t0
+    hproba = host.predict_proba(X_te)
+    d_proba = float(np.abs(proba - hproba).max())
+    top2 = np.sort(hproba, 1)
+    clear = (top2[:, -1] - top2[:, -2]) > 1e-3
+    same = (proba.argmax(1) == hproba.argmax(1))
+    log(f"  (c) fit {fit_s:.2f} s (the asset read and uploaded once included), "
+        f"predict_proba {pred_ms:.2f} ms for {len(X_te)} rows, preprocess_ "
+        f"{clf.preprocess_!r}; test ACC {m['ACC']:.4f}, macro AUC {m['AUC']:.4f}")
+    log(f"  (c) host CPU fit {host_fit_s:.2f} s, preprocess_ {host.preprocess_!r}; "
+        f"card vs host probabilities max |d| {d_proba:.3g} (bound 1e-4); predictions "
+        f"equal on {int(same[clear].sum())} of the {int(clear.sum())} rows whose top two "
+        f"differ by more than 1e-3 ({int(same.sum())} of {len(same)} in all)")
+    check(clf.preprocess_ == host.preprocess_, "classifier preprocess_ card != host")
+    check(d_proba <= 1e-4, f"classifier card vs host {d_proba}")
+    check(bool(same[clear].all()), "classifier predictions differ on a clear row")
+    check(np.isfinite(m["AUC"]), "classifier AUC not finite")
+    out.update(clf_fit_s=fit_s, clf_predict_ms=pred_ms, clf_preprocess=clf.preprocess_,
+               clf_test_acc=m["ACC"], clf_test_auc=m["AUC"], clf_host_fit_s=host_fit_s,
+               clf_card_vs_host=d_proba)
+
+    # (d) ICLRegressor on a target drawn from the same table
+    # y = 0.8 a - 0.5 b + 0.3 a c + noise over three numeric feature columns
+    # (their blanks at the column median), which stay in X with their blanks
+    g = np.random.default_rng(SEED + 17)
+    source_cols = [j for j in range(X.shape[1]) if np.isnan(X[:, j]).mean() < 0.5
+                   and len(np.unique(X[np.isfinite(X[:, j]), j])) > 10][:3]
+    ya, yb, yc = (np.where(np.isnan(X[:, j]), np.nanmedian(X[:, j]), X[:, j])
+                  .astype(np.float64) for j in source_cols)
+    target = 0.8 * ya - 0.5 * yb + 0.3 * ya * yc + 0.2 * g.normal(size=len(X))
+    tr, te = train_test_split(np.arange(len(X)), test_size=0.2, random_state=42)
+    Xr_tr, Xr_te = X[tr], X[te]
+    t0 = time.perf_counter()
+    reg = ICLRegressor().fit(Xr_tr, target[tr])
+    reg_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_pred = {k: reg.predict(Xr_te, k) for k in ("mean", "median", "quantiles")}
+    reg_pred_ms = (time.perf_counter() - t0) / 3 * 1e3
+    hreg = ICLRegressor(device="cpu").fit(Xr_tr, target[tr])
+    spread = float(target.max() - target.min())
+    d_reg = {}
+    for k, v in card_pred.items():
+        hv = hreg.predict(Xr_te, k)
+        d_reg[k] = float(np.abs(np.asarray(v) - np.asarray(hv)).max())
+    r2 = 1 - np.mean((card_pred["mean"] - target[te]) ** 2) / np.var(target[te])
+    log(f"  (d) regressor on y = 0.8 a - 0.5 b + 0.3 a c + noise (a, b, c: feature "
+        f"columns {source_cols}): fit {reg_fit_s:.2f} s, predict {reg_pred_ms:.2f} ms a call, "
+        f"preprocess_ {reg.preprocess_!r} (host {hreg.preprocess_!r}), test R^2 {r2:.4f}; "
+        f"card vs host max |d| {d_reg} against a target spread of {spread:.4g} "
+        "(bound 1e-4 of it)")
+    check(reg.preprocess_ == hreg.preprocess_, "regressor preprocess_ card != host")
+    for k, v in d_reg.items():
+        check(v <= 1e-4 * spread, f"regressor {k} card vs host {v}")
+    out.update(reg_fit_s=reg_fit_s, reg_predict_ms=reg_pred_ms, reg_test_r2=float(r2),
+               reg_card_vs_host=d_reg, reg_target_spread=spread)
+
+    # (e) the embedding path: tabel_encoder_multi, the default EnsembleICLEmbedder
+    runs = []
+    for run in range(2):
+        tr_csv = os.path.join(tab_dir, f"train_embeddings_{run}.csv")
+        te_csv = os.path.join(tab_dir, f"test_embeddings_{run}.csv")
+        timer = _PathTimer(torch, {"forward": (ICLTransformer, "forward", True),
+                                   "csv": (pipeline, "write_embeddings", False)})
+        prof = None
+        with timer:
+            t0 = time.perf_counter()
+            if run == 1:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            pipeline.tabel_encoder_multi(
+                table, start_col=14, label_col="Group", classes=TAB_CLASSES, n_fold=5,
+                test_size=0.2, train_out=tr_csv, test_out=te_csv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        runs.append((tr_csv, te_csv, wall, dict(timer.seconds), dict(timer.calls), prof))
+    (tr0, te0, wall, secs, calls, _), (tr1, te1, wall1, secs1, _, prof) = runs
+    shapes = []
+    for path in (tr0, te0):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        vals = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+        check(rows[0] == ["label"] + [str(j) for j in range(len(rows[0]) - 1)],
+              f"{path}: header")
+        check(np.isfinite(vals).all(), f"{path}: values not finite")
+        check(set(r[0] for r in rows[1:]) <= set(TAB_CLASSES), f"{path}: labels")
+        shapes.append((len(rows) - 1, len(rows[0])))
+    identical = all(open(a, "rb").read() == open(b, "rb").read()
+                    for a, b in ((tr0, tr1), (te0, te1)))
+    host_s = wall - secs["forward"] - secs["csv"]
+    dev_rows = [e for e in prof.key_averages() if device_us(e) > 0]
+    dev_s = sum(device_us(e) for e in dev_rows) / 1e6
+    idle = 1 - dev_s / wall1
+    log(f"  (e) tabel_encoder_multi, 6 members x 4 views, n_fold 5, test 0.2: "
+        f"{wall:.2f} s wall, {calls['forward']} forwards; train CSV {shapes[0]}, test CSV "
+        f"{shapes[1]} (label + 6 x (256 + 10 + 10 + 20) = 1,776 columns), finite; "
+        f"a second run byte-identical: {identical}")
+    log(f"  (e) wall split: host preprocessing and embedding blocks {host_s:.2f} s, card "
+        f"forward (to its sync) {secs['forward']:.2f} s, CSV writing {secs['csv']:.2f} s; "
+        f"the profiled second run {wall1:.2f} s with {dev_s * 1e3:.1f} ms of device time: "
+        f"the card idles {idle:.1%}")
+    check(calls["forward"] == 36, f"{calls['forward']} forwards (expected 6 x (5 + 1))")
+    check(shapes == [(TAB_ROWS - n_test, 1777), (n_test, 1777)], f"CSV shapes {shapes}")
+    check(identical, "the second embedding run's CSVs differ")
+    out.update(embed_wall_s=wall, embed_forwards=calls["forward"], embed_split_s={
+        "host": host_s, "forward": secs["forward"], "csv": secs["csv"]},
+        embed_profiled_wall_s=wall1, embed_device_s=dev_s, embed_idle=idle,
+        embed_csv_shapes=shapes)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 15 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def _timed_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -2268,9 +2636,12 @@ def main() -> int:
 
     # ---- 14. MSHyper and the host tools -------------------------------------
     tools = mshyper_and_tools_phase(torch, dev, card, work, atlas_nii, atlas_lut)
+
+    # ---- 15. tabular in-context inference -----------------------------------
+    tab = tabular_phase(torch, dev, card, work)
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 15. result ----------------------------------------------------
+    # ---- 16. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -2373,7 +2744,7 @@ def main() -> int:
                     "int8": {k: v for k, v in q8.items() if k not in ("k3_shapes",)},
                     "native_decoder": dict(native, build_s=native_build_s),
                     "densenet": dense, "encoder": enc,
-                    "mshyper_and_tools": tools,
+                    "mshyper_and_tools": tools, "tabular": tab,
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -59,8 +59,9 @@ def _split_sizes(n_samples: int, test_size: float) -> tuple[int, int]:
     return n_train, n_test
 
 
-def stratified_indices(labels, test_size: float = 0.2, seed: int = 42):
-    """(train_indices, test_indices) of a stratified shuffled split."""
+def stratified_indices(labels, test_size: float = 0.2, seed=42):
+    """(train_indices, test_indices) of a stratified shuffled split; `seed`
+    is an int or a `np.random.RandomState` to draw from."""
     y = np.asarray(labels)
     n_train, n_test = _split_sizes(len(y), test_size)
     classes, y_indices, class_counts = np.unique(y, return_inverse=True,
@@ -73,7 +74,7 @@ def stratified_indices(labels, test_size: float = 0.2, seed: int = 42):
                          f"at least one sample of each of {len(classes)} classes")
     class_indices = np.split(np.argsort(y_indices, kind="stable"),
                              np.cumsum(class_counts)[:-1])
-    rng = np.random.RandomState(seed)
+    rng = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
     n_i = _approximate_mode(class_counts, n_train, rng)
     t_i = _approximate_mode(class_counts - n_i, n_test, rng)
     train, test = [], []

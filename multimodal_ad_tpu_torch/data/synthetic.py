@@ -1,8 +1,8 @@
-"""Seeded synthetic ADNI-like volumes for tests and chip_smoke.py (own copy
-of the TPU package's data/synthetic.py:21-77).
+"""Seeded synthetic ADNI-like volumes and clinical tables for tests and
+chip_smoke.py (own copy of the TPU package's data/synthetic.py:21-110).
 
-The label CSV is written with the csv module, so the serving path needs no
-pandas.
+The label CSV and the table are written with the csv module, so no path
+needs pandas.
 """
 
 from __future__ import annotations
@@ -93,3 +93,31 @@ def make_atlas(shape=(24, 28, 24), n_rois: int = 6, seed: int = 0):
         lab[np.linalg.norm(pts - 0.5, axis=-1) > 0.55] = 0
         labels[i] = lab
     return labels
+
+
+def make_table(n: int = 120, n_features: int = 20,
+               classes=("CN", "AD"), seed: int = 0,
+               n_categorical: int = 3, start_pad_cols: int = 14,
+               path: str | None = None):
+    """Clinical-style table: `start_pad_cols` id/demographic filler
+    columns, a 'Group' label column, then numeric+categorical features
+    (features from column 14). Returns {column name: values} in the TPU
+    package's DataFrame column order and from its draws, or, given `path`,
+    writes it there as that DataFrame's ``to_csv(index=False)`` does and
+    returns the path."""
+    from .tabular import write_table
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, len(classes), n)
+    data = {}
+    data["Subject_ID"] = np.array([f"S{i:04d}" for i in range(n)], dtype=object)
+    data["Group"] = np.array([classes[c] for c in y], dtype=object)
+    for j in range(start_pad_cols - 2):
+        data[f"meta{j}"] = rng.normal(size=n).round(3)
+    for j in range(n_features - n_categorical):
+        data[f"feat{j}"] = (rng.normal(size=n) + 0.8 * y).astype(np.float32)
+    for j in range(n_categorical):
+        data[f"cat{j}"] = rng.choice(["a", "b", "c"], size=n).astype(object)
+    if path is None:
+        return data
+    return write_table(path, data)

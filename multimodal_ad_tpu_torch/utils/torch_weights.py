@@ -23,6 +23,9 @@
   torch.nn.functional.conv_transpose3d only with the kernel flipped. The
   classifier's Dense kernel is transposed; its up steps concatenate
   [skip, x] in both packages, so their convs map as they are.
+- `icl_state_dict_from_flax` and `reg_icl_state_dict_from_flax` turn the
+  in-context networks' flax params (the bundled msgpack assets) into the
+  tabular networks' float32 state_dicts, validating every leaf's shape.
 """
 
 from __future__ import annotations
@@ -389,3 +392,113 @@ def mshyper_state_dict_from_flax(variables, n_scales: int = 2, use_attention: bo
     """TPU-package MSHyperModel variables ({'params': ...}) -> this
     package's MSHyperModel state_dict (`n_scales` = len(window_sizes))."""
     return _state_dict_from_rows(variables, mshyper_name_map(n_scales, use_attention))
+
+
+def _icl_trunk_rows(cfg) -> list:
+    """(torch name, flax path, flax shape, to-torch transform) rows of the
+    in-context networks' shared trunk: the blocks and the final LayerNorm.
+    flax's attention kernels are (d_model, heads, head_dim) for the query,
+    key and value and (heads, head_dim, d_model) for the output; their
+    flattened (heads x head_dim) axis is heads-major, as the port's head
+    split."""
+    d, h, ff = cfg.d_model, cfg.n_heads, cfg.d_ff
+    hd = d // h
+    dense_t = lambda w: w.T  # noqa: E731 flax (in, out) -> torch (out, in)
+    rows = []
+    for i in range(cfg.n_layers):
+        b, t = ("params", f"ICLBlock_{i}"), f"blocks.{i}"
+        for tn, fn in (("ln1", "LayerNorm_0"), ("ln2", "LayerNorm_1")):
+            rows += [(f"{t}.{tn}.weight", b + (fn, "scale"), (d,), None),
+                     (f"{t}.{tn}.bias", b + (fn, "bias"), (d,), None)]
+        att = b + ("MultiHeadDotProductAttention_0",)
+        for name in ("query", "key", "value"):
+            rows += [(f"{t}.attn.{name}.weight", att + (name, "kernel"), (d, h, hd),
+                      lambda w: w.reshape(d, d).T),
+                     (f"{t}.attn.{name}.bias", att + (name, "bias"), (h, hd),
+                      lambda w: w.reshape(d))]
+        rows += [(f"{t}.attn.out.weight", att + ("out", "kernel"), (h, hd, d),
+                  lambda w: w.reshape(d, d).T),
+                 (f"{t}.attn.out.bias", att + ("out", "bias"), (d,), None)]
+        for tn, fn, fin, fout in (("fc1", "Dense_0", d, ff), ("fc2", "Dense_1", ff, d)):
+            rows += [(f"{t}.{tn}.weight", b + (fn, "kernel"), (fin, fout), dense_t),
+                     (f"{t}.{tn}.bias", b + (fn, "bias"), (fout,), None)]
+    rows += [("norm.weight", ("params", "LayerNorm_0", "scale"), (d,), None),
+             ("norm.bias", ("params", "LayerNorm_0", "bias"), (d,), None)]
+    return rows
+
+
+def _icl_dense_rows(tname: str, fname: str, fin: int, fout: int, bias: bool = True) -> list:
+    rows = [(f"{tname}.weight", ("params", fname, "kernel"), (fin, fout), lambda w: w.T)]
+    if bias:
+        rows.append((f"{tname}.bias", ("params", fname, "bias"), (fout,), None))
+    return rows
+
+
+def icl_name_map(cfg) -> list:
+    """Rows pairing `tabular/icl.py::ICLTransformer`'s state_dict with the
+    TPU package's flax ICLTransformer params for `cfg` (an ICLConfig)."""
+    d, f = cfg.d_model, cfg.max_features
+    rows = _icl_dense_rows("feature_proj", "feature_proj", f, d)
+    rows.append(("label_embed.weight", ("params", "label_embed", "embedding"),
+                 (cfg.max_classes, d), None))
+    rows.append(("query_token", ("params", "query_token"), (d,), None))
+    if cfg.cat_input:
+        rows += _icl_dense_rows("cat_proj", "cat_proj", f, d)
+        rows += _icl_dense_rows("cat_ind", "cat_ind", f, d, bias=False)
+    return rows + _icl_trunk_rows(cfg) + _icl_dense_rows("cls_head", "cls_head", d,
+                                                     cfg.max_classes)
+
+
+def reg_icl_name_map(cfg) -> list:
+    """Rows of `tabular/icl_regression.py::RegICLTransformer` against the
+    flax RegICLTransformer params for `cfg` (a RegICLConfig)."""
+    d = cfg.d_model
+    rows = _icl_dense_rows("feature_proj", "feature_proj", cfg.max_features, d)
+    rows += _icl_dense_rows("target_proj", "target_proj", 1, d)
+    rows.append(("query_token", ("params", "query_token"), (d,), None))
+    return rows + _icl_trunk_rows(cfg) + _icl_dense_rows("reg_head", "reg_head", d, cfg.n_bins)
+
+
+def _keystr(path: tuple) -> str:
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _state_dict_from_flax_rows(variables, rows) -> "OrderedDict[str, torch.Tensor]":
+    """Validate every leaf of `variables` against `rows` (the structure, then
+    each shape, as the TPU package's `validated_from_bytes` reports it) and
+    return the float32 state_dict."""
+    from ..tabular.flax_msgpack import tree_leaves
+
+    leaves = dict(tree_leaves(variables))
+    expected = {path: shape for _, path, shape, _ in rows}
+    missing = sorted(set(expected) - set(leaves))
+    extra = sorted(set(leaves) - set(expected))
+    if missing or extra:
+        raise ValueError(
+            "tree structure mismatch: "
+            + "; ".join([f"missing {_keystr(p)}" for p in missing[:4]]
+                        + [f"unexpected {_keystr(p)}" for p in extra[:4]]))
+    mismatches = [f"{_keystr(p)}: asset {np.shape(leaves[p])} != expected {expected[p]}"
+                  for p in sorted(expected) if tuple(np.shape(leaves[p])) != expected[p]]
+    if mismatches:
+        raise ValueError("array shape mismatch: " + "; ".join(mismatches[:4]))
+    sd = OrderedDict()
+    for tname, path, _, transform in rows:
+        w = np.asarray(leaves[path], np.float32)
+        if transform is not None:
+            w = transform(w)
+        sd[tname] = torch.from_numpy(np.ascontiguousarray(w))
+    return sd
+
+
+def icl_state_dict_from_flax(variables, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """The TPU package's ICLTransformer params ({'params': ...}, numpy
+    leaves of any float dtype, from flax or `tabular/flax_msgpack.py`) ->
+    this package's ICLTransformer state_dict in float32; raises ValueError
+    on a missing or extra leaf or a shape that does not fit `cfg`."""
+    return _state_dict_from_flax_rows(variables, icl_name_map(cfg))
+
+
+def reg_icl_state_dict_from_flax(variables, cfg) -> "OrderedDict[str, torch.Tensor]":
+    """As `icl_state_dict_from_flax`, for the regression network."""
+    return _state_dict_from_flax_rows(variables, reg_icl_name_map(cfg))

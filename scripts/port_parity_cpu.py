@@ -9,7 +9,9 @@ bounds. Needs both jax and torch; runs in a few minutes. `--only int8`
 runs the int8 serving slice's comparisons alone; `--only densenet`,
 `--only encoder` and `--only hypergraph` those of the DenseNet (and its
 trainer's BN statistics), of the encoder features with the seg head and
-the stage taps, and of MSHyper.
+the stage taps, and of MSHyper; `--only tabular` those of the tabular
+in-context slice (the msgpack reader, the loaders, the sklearn
+replacements, the networks, the classifier, regressor and embedder).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def report(name, a, b):
 
 def main():
     only = {"int8": int8_parity, "densenet": densenet_parity, "encoder": encoder_parity,
-            "hypergraph": hypergraph_parity}
+            "hypergraph": hypergraph_parity, "tabular": tabular_parity}
     if sys.argv[1:2] == ["--only"]:
         if len(sys.argv) != 3 or sys.argv[2] not in only:
             raise SystemExit(f"usage: port_parity_cpu.py [--only {'|'.join(only)}]")
@@ -641,6 +643,140 @@ def hypergraph_parity():
             with torch.no_grad():
                 report(f"MSHyper seq {seq} d_model {d_model} attention {att}",
                        tm(torch.from_numpy(xs)).numpy(), jm.apply(v, jnp.asarray(xs)))
+
+
+
+def tabular_parity():
+    """The tabular slice: the msgpack reader against flax on the three
+    assets, the table loaders, the sklearn replacements against sklearn,
+    the networks (tiny config on random weights; the full-width classifier
+    asset on a 64-row bucket), ICLClassifier per preprocess (probabilities
+    and every embedding kind), ICLRegressor, and tabel_encoder_multi's CSVs
+    against the JAX package, on the tests' seeded inputs."""
+    import warnings
+
+    from flax import serialization
+    from sklearn import feature_selection as skfs
+    from sklearn import preprocessing as skpre
+
+    from multimodal_ad_tpu.data import tabular as jtab
+    from multimodal_ad_tpu.data.synthetic import make_table as jax_make_table
+    from multimodal_ad_tpu.tabular import icl as jicl
+    from multimodal_ad_tpu.tabular import pipeline as jpipe
+    from multimodal_ad_tpu.tabular.regression import ICLRegressor as JaxRegressor
+    from multimodal_ad_tpu_torch.data import tabular as ttab
+    from multimodal_ad_tpu_torch.tabular import estimator as est
+    from multimodal_ad_tpu_torch.tabular import icl as ticl
+    from multimodal_ad_tpu_torch.tabular import pipeline as tpipe
+    from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state, tree_leaves
+    from multimodal_ad_tpu_torch.tabular.regression import ICLRegressor
+    from multimodal_ad_tpu_torch.utils.torch_weights import icl_state_dict_from_flax
+
+    warnings.simplefilter("ignore")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name in ("icl_default", "icl_embedder", "icl_regression_default"):
+        path = os.path.join(root, "multimodal_ad_tpu_torch", "assets", f"{name}.msgpack")
+        with open(path, "rb") as f:
+            ref = tree_leaves(serialization.msgpack_restore(f.read()))
+        ours = tree_leaves(read_state(path))
+        same = all(p == q and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                   for (p, a), (q, b) in zip(ours, ref)) and len(ours) == len(ref)
+        print(f"{'msgpack reader vs flax, ' + name + ': bit-equal':58s} {same}")
+    with tempfile.TemporaryDirectory() as d:
+        df = jax_make_table(n=70, classes=("CN", "MCI", "AD", "SMCI", "PMCI"), seed=5)
+        rng = np.random.default_rng(5)
+        df.loc[rng.random(70) < 0.2, "feat3"] = np.nan
+        df.loc[rng.random(70) < 0.3, "cat1"] = None
+        df.to_csv(os.path.join(d, "t.csv"), index=False)
+        a = jtab.load_adni_data_quadclass(os.path.join(d, "t.csv"), 14)
+        b = ttab.load_adni_data_quadclass(os.path.join(d, "t.csv"), 14)
+        print(f"{'quadclass loader vs pandas loader: X and y equal':58s} "
+              f"{np.array_equal(a[0], b[0], equal_nan=True) and np.array_equal(a[1], b[1])}")
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(90, 7)).astype(np.float32)
+    X[:, 3] = rng.integers(0, 3, 90)
+    y = rng.integers(0, 3, 90)
+    report("f_classif vs sklearn (90 x 7, float32, ties)", est.f_classif(X, y)[0],
+           skfs.f_classif(X, y)[0])
+    yr = X[:, 0] * 2.0 + rng.normal(size=90)
+    report("f_regression vs sklearn", est.f_regression(X, yr)[0], skfs.f_regression(X, yr)[0])
+    for n in (12, 90):
+        kw = dict(n_quantiles=min(64, n), output_distribution="normal", random_state=0)
+        report(f"QuantileTransformer vs sklearn (n {n})",
+               est.QuantileTransformer(**kw).fit(X[:n]).transform(X),
+               skpre.QuantileTransformer(**kw).fit(X[:n]).transform(X))
+
+    cfg = ticl.ICLConfig()
+    tree = read_state(ticl.default_asset_path())
+    params = jicl._load_params_file(jicl.ICLConfig(), jicl.default_asset_path())
+    tm = ticl.ICLTransformer(cfg).eval()
+    tm.load_state_dict(icl_state_dict_from_flax(tree, cfg))
+    rng = np.random.default_rng(2)
+    x_ctx = np.zeros((2, 64, 192), np.float32)
+    x_ctx[:, :50, :30] = rng.normal(size=(2, 50, 30))
+    y_ctx = rng.integers(0, 4, (2, 64)).astype(np.int32)
+    mask = np.zeros((2, 64), np.float32)
+    mask[:, :50] = 1
+    x_qry = np.zeros((2, 16, 192), np.float32)
+    x_qry[:, :, :30] = rng.normal(size=(2, 16, 30))
+    cat = np.zeros((2, 192), np.float32)
+    cat[:, [2, 5]] = 1
+    xc, xq = jicl._zscore_by_ctx(x_ctx, x_qry, mask)
+    (lo, q, c), inter = jicl.ICLTransformer(jicl.ICLConfig()).apply(
+        params, xc, y_ctx, mask, xq, cat, mutable=["intermediates"])
+    with torch.no_grad():
+        txc, txq = ticl._zscore_by_ctx(torch.from_numpy(x_ctx), torch.from_numpy(x_qry),
+                                       torch.from_numpy(mask))
+        out = tm(txc, torch.from_numpy(y_ctx), torch.from_numpy(mask), txq,
+                 torch.from_numpy(cat), return_penult=True)
+    for name, a, b in zip(("logits", "qry_emb", "ctx_emb", "h_penult"), out,
+                          (lo, q, c, inter["intermediates"]["h_penult"][0])):
+        report(f"full-width classifier asset, 64-row bucket: {name}", a.numpy(), b)
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(80, 12)).astype(np.float32)
+    y = rng.integers(0, 3, 80)
+    X[:, 0] += y
+    X[:, 1] = rng.integers(0, 3, 80)
+    X[:, 2] = X[:, 3] * X[:, 4] + 0.5 * y
+    X[:60][rng.random((60, 12)) < 0.05] = np.nan
+    X, y, Xt = X[:60], y[:60], X[60:]
+    for pp in (None, "whiten", "quantile", "pairs", "onehot", "auto"):
+        j = jicl.ICLClassifier(preprocess=pp).fit(X, y)
+        t = ticl.ICLClassifier(preprocess=pp, device="cpu").fit(X, y)
+        report(f"ICLClassifier({pp!r}) predict_proba [{t.preprocess_} / {j.preprocess_}]",
+               t.predict_proba(Xt), j.predict_proba(Xt))
+        for kind in ("rich", "rich2", "compact", "hidden"):
+            j.embedding_kind = t.embedding_kind = kind
+            report(f"ICLClassifier({pp!r}) get_embeddings {kind}", t.get_embeddings(Xt),
+                   j.get_embeddings(Xt))
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(75, 8)).astype(np.float32)
+    yr = 2.0 * X[:, 0] - X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=75)
+    j = JaxRegressor().fit(X[:60], yr[:60])
+    t = ICLRegressor(device="cpu").fit(X[:60], yr[:60])
+    spread = float(yr[:60].max() - yr[:60].min())
+    for kind in ("mean", "median"):
+        d = np.abs(t.predict(X[60:], kind) - j.predict(X[60:], kind)).max()
+        print(f"{'ICLRegressor() ' + kind + ' / target spread':58s} max|d| {d / spread:.3e}")
+    d = max(np.abs(a - b).max() for a, b in zip(t.predict(X[60:], "quantiles"),
+                                                j.predict(X[60:], "quantiles")))
+    print(f"{'ICLRegressor() quantiles / target spread':58s} max|d| {d / spread:.3e}")
+    with tempfile.TemporaryDirectory() as d:
+        jax_make_table(n=80, n_features=14, classes=("CN", "SMCI", "PMCI", "AD"), seed=7,
+                       n_categorical=2).to_csv(os.path.join(d, "t.csv"), index=False)
+        kw = dict(start_col=14, label_col="Group", classes=["CN", "SMCI", "PMCI", "AD"],
+                  n_fold=3, test_size=0.25)
+        jpipe.tabel_encoder_multi(os.path.join(d, "t.csv"), train_out=d + "/j_tr.csv",
+                                  test_out=d + "/j_te.csv", **kw)
+        tpipe.tabel_encoder_multi(os.path.join(d, "t.csv"), train_out=d + "/t_tr.csv",
+                                  test_out=d + "/t_te.csv", device="cpu", **kw)
+        for part in ("tr", "te"):
+            a = np.loadtxt(f"{d}/t_{part}.csv", delimiter=",", skiprows=1,
+                           usecols=range(1, 1777))
+            b = np.loadtxt(f"{d}/j_{part}.csv", delimiter=",", skiprows=1,
+                           usecols=range(1, 1777))
+            report(f"tabel_encoder_multi, ensemble embedder: {part} CSV", a, b)
 
 
 if __name__ == "__main__":

@@ -1073,3 +1073,159 @@ def test_native_decoder_on_the_cards_machine(cuda, tmp_path):
         assert reader == "native"
         assert np.array_equal(vol.view(np.uint32), ref.view(np.uint32))
         assert np.array_equal(b.view(np.uint32), ref.view(np.uint32))
+
+
+TABULAR_BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "multimodal_ad_tpu",
+                   "sklearn", "pandas")
+
+
+def test_tabular_modules_import_with_jax_flax_msgpack_sklearn_and_pandas_blocked():
+    mods = [m for m in _port_modules()
+            if ".tabular" in m or m.endswith(("data.tabular", "cli.tabular_embed"))]
+    assert len(mods) >= 9, mods
+    code = (
+        "import sys\n"
+        f"for name in {TABULAR_BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_tabular_path_runs_without_jax_flax_msgpack_sklearn_or_pandas(tmp_path):
+    """ICLClassifier fit/predict, ICLRegressor and tabel_encoder_multi with
+    the ensemble embedder run on the CPU with the card machine's absences;
+    cli.tabular_embed writes its CSVs, then raises ImportError naming the
+    host-only quick eval."""
+    code = (
+        "import sys\n"
+        f"for name in {TABULAR_BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import os\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "torch.set_num_threads(2)  # the suite runs several workers at once\n"
+        "from multimodal_ad_tpu_torch.cli import tabular_embed\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_table\n"
+        "from multimodal_ad_tpu_torch.tabular import ICLClassifier, ICLRegressor\n"
+        "from multimodal_ad_tpu_torch.tabular.pipeline import tabel_encoder_multi\n"
+        f"root = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(50, 6)).astype(np.float32)\n"
+        "y = (X[:, 0] > 0).astype(int)\n"
+        "clf = ICLClassifier(preprocess='quantile', n_estimators=2, device='cpu').fit(X, y)\n"
+        "assert clf.predict_proba(X[:5]).shape == (5, 2)\n"
+        "reg = ICLRegressor(preprocess='pairs', n_estimators=2, device='cpu')\n"
+        "assert reg.fit(X, X[:, 1]).predict(X[:5]).shape == (5,)\n"
+        "table = make_table(n=40, classes=('CN', 'SMCI', 'PMCI', 'AD'), seed=1,"
+        " path=root + '/t.csv')\n"
+        "tabel_encoder_multi(table, label_col='Group', classes=['CN', 'SMCI', 'PMCI', 'AD'],"
+        " n_fold=2, train_out=root + '/tr.csv', test_out=root + '/te.csv', device='cpu')\n"
+        "try:\n"
+        "    tabular_embed.main(['--table', table, '--label-col', 'Group', '--n-fold', '2',"
+        " '--train-out', root + '/c_tr.csv', '--test-out', root + '/c_te.csv',"
+        " '--device', 'cpu'])\n"
+        "except ImportError as e:\n"
+        "    assert 'quick eval' in str(e) and os.path.isfile(root + '/c_te.csv'), e\n"
+        "    print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    with open(tmp_path / "tr.csv") as f:
+        assert len(f.readline().split(",")) == 1 + 6 * 296
+
+
+def test_tabular_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from multimodal_ad_tpu_torch.cli.tabular_embed import main
+    from multimodal_ad_tpu_torch.data.synthetic import make_table
+    from multimodal_ad_tpu_torch.tabular import (EnsembleICLEmbedder, ICLClassifier,
+                                                 ICLRegressor)
+    from multimodal_ad_tpu_torch.tabular.pipeline import tabel_encoder_multi
+
+    X = np.random.default_rng(0).normal(size=(30, 4)).astype(np.float32)
+    y = np.arange(30) % 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ICLClassifier().fit(X, y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ICLRegressor().fit(X, X[:, 0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EnsembleICLEmbedder().fit(X, y)
+    table = make_table(n=40, seed=0, path=str(tmp_path / "t.csv"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tabel_encoder_multi(table, label_col="Group", n_fold=2,
+                            train_out=str(tmp_path / "tr.csv"),
+                            test_out=str(tmp_path / "te.csv"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--table", table, "--label-col", "Group", "--train-out",
+              str(tmp_path / "c_tr.csv"), "--test-out", str(tmp_path / "c_te.csv")])
+    assert not os.path.exists(tmp_path / "tr.csv")
+    assert not os.path.exists(tmp_path / "c_tr.csv")  # nothing ran on the host
+
+
+@pytest.mark.cuda
+def test_icl_forward_on_the_card_matches_the_host(cuda):
+    """The full-width classifier asset's forward (4 views, a 512-row bucket
+    with 464 valid rows, 100 queries, the categorical mask): every output
+    within 1e-4 of its spread."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state
+    from multimodal_ad_tpu_torch.tabular.icl import (ICLConfig, ICLTransformer,
+                                                     _zscore_by_ctx, default_asset_path)
+    from multimodal_ad_tpu_torch.utils.torch_weights import icl_state_dict_from_flax
+
+    resolve_device("cuda")
+    cfg = ICLConfig()
+    sd = icl_state_dict_from_flax(read_state(default_asset_path()), cfg)
+    rng = np.random.default_rng(0)
+    x_ctx = rng.normal(size=(4, 512, 192)).astype(np.float32)
+    x_ctx[:, 464:] = 0
+    mask = np.zeros((4, 512), np.float32)
+    mask[:, :464] = 1
+    inputs = [torch.from_numpy(a) for a in (
+        x_ctx, rng.integers(0, 4, (4, 512)), mask,
+        rng.normal(size=(4, 100, 192)).astype(np.float32),
+        (rng.random((4, 192)) < 0.05).astype(np.float32))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        net = ICLTransformer(cfg).eval()
+        net.load_state_dict(sd)
+        net = net.to(dev)
+        xc, yc, m, xq, cat = (t.to(dev) for t in inputs)
+        with torch.inference_mode():
+            xc, xq = _zscore_by_ctx(xc, xq, m)
+            outs[str(dev)] = [t.cpu() for t in net(xc, yc, m, xq, cat, return_penult=True)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_icl_classifier_fit_on_the_card_matches_the_host(cuda):
+    """ICLClassifier() with every default (the auto preprocess search) and
+    ICLRegressor(): the same choices on the card and the host, probabilities
+    within 1e-4 and predictions within 1e-4 of the target's spread."""
+    from multimodal_ad_tpu_torch.tabular import ICLClassifier, ICLRegressor
+
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(150, 20)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(int) + (X[:, 3] > 1)
+    X[:, 4] = rng.integers(0, 3, 150)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    card = ICLClassifier().fit(X[:120], y[:120])
+    host = ICLClassifier(device="cpu").fit(X[:120], y[:120])
+    assert card.preprocess_ == host.preprocess_
+    p, q = card.predict_proba(X[120:]), host.predict_proba(X[120:])
+    assert float(np.abs(p - q).max()) <= 1e-4
+    target = np.nan_to_num(X[:, 0]).astype(np.float64) * 3 + np.nan_to_num(X[:, 5])
+    reg = ICLRegressor().fit(X[:120], target[:120])
+    href = ICLRegressor(device="cpu").fit(X[:120], target[:120])
+    assert reg.preprocess_ == href.preprocess_
+    spread = float(target.max() - target.min())
+    for kind in ("mean", "median"):
+        d = np.abs(reg.predict(X[120:], kind) - href.predict(X[120:], kind)).max()
+        assert float(d) <= 1e-4 * spread

@@ -157,9 +157,37 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    time, 36 forwards, CSV shapes (1,776 embedding columns), finite values,
    a second run byte-identical, the wall split into host work, card
    forwards and CSV writing, and the card's idle share (a profile);
-16. one JSON line {"kernels": [...]} and, last, the device line.
+16. ICL meta-training at the default config (d_model 256, 6 layers, 192
+   features, 10 classes, cat_input; batch 32, n_ctx 128, n_qry 32, both
+   auxiliary losses at 0.5): (a) `cli.pretrain_icl` on the card, 300 steps
+   with `--device-prior` and 40 with the host prior (meta-steps/s), each
+   step at steady state (CUDA events, and a profile: the card's idle share
+   and device kernels a step, against the unprofiled step), the sampler's
+   share of a device-prior step
+   and the step's fp32 FLOP bound; (b) the written msgpack read back by the
+   port's loader and converter and by `merge_compatible_params`, and used by
+   `ICLClassifier(params=...)`; (c) the JAX package's device-prior learning
+   proof (TINY, 300 steps, chunk 50: accuracy >= 0.8); (d)
+   `ICLClassifier(cfg=TINY)` and `ICLRegressor(cfg=<TINY RegICLConfig>)`
+   with no params meta-train on the card and predict; (e) `--regression`,
+   40 steps;
+17. fusion: 40 subjects with MRI and PET at 91x109x91 and a 20-feature
+   table keyed by subject: (a) `cli.train_fusion --use-pet --use-table`
+   (dim 128, depth 2, heads 4, dim_head 32, mlp 256; batch 8, bf16, 2
+   folds x 3 epochs, the default `ICLClassifier()` embedder on the card):
+   K1 launched for the MRI and the PET of every batch, the CSV, the
+   checkpoints; the train step's rate on a resident batch (vols/s counting
+   MRI and PET volumes, and subjects/s), its idle share, kernels a step and
+   top kernels, and a streamed epoch's rate and idle share; (b) `--arch
+   daft --use-table`, one epoch; (c) the JAX package's TestFusionLearning
+   recipe at 16^3 with cuDNN deterministic (every fold's best score >= 0.8,
+   held-out AUC >= 0.85; the table embedder `ICLClassifier()` in place of
+   sklearn's logistic regression); (d) `MultimodalClassifier` (MRI + PET + table) and
+   `DAFTResNet` fp32 forwards on the card against the host on the same
+   weights and inputs (1e-3 of the logits' spread);
+18. one JSON line {"kernels": [...]} and, last, the device line.
 
-Every streamed path of phases 7, 9 (cli.train_unet3d), 10 and 13 prints
+Every streamed path of phases 7, 9 (cli.train_unet3d), 10, 13 and 17 prints
 VolumeBatcher's decodes by reader and fails unless they are all native;
 phase 9's timed epochs check that each ran on the reader it was given.
 
@@ -1889,6 +1917,434 @@ def tabular_phase(torch, dev, card, work):
     return out
 
 
+META_BATCH, META_CTX, META_QRY = 32, 128, 32  # cli.pretrain_icl's defaults
+META_DEVICE_STEPS, META_HOST_STEPS, META_REG_STEPS = 300, 40, 40
+
+
+def _separable_data(n=90, f=6, seed=5):
+    """The JAX package's tests/test_tabular.py::separable_data."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, n)
+    X = rng.normal(size=(n, f)).astype(np.float32) + 2.5 * y[:, None]
+    return X, y
+
+
+def _profiled_steps(torch, fn, n, tries=3):
+    """(device ms a step, device kernels and copies a step, the profiler)
+    over `n` calls of `fn()` back to back under torch.profiler. A profile
+    that loses events counts fewer kernels and less device time, so the
+    result is taken only from a profile whose kernel count the one before
+    it confirms within 2 %; after `tries` profiles with no such pair the
+    phase fails. The idle shares below set this device time against the
+    step's unprofiled time (CUDA events): the profiler slows the host's
+    launches."""
+    counts = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms, launches = profile_split(torch, prof, n)
+        if counts and abs(launches - counts[-1]) <= 0.02 * max(launches, counts[-1]):
+            return dev_ms, launches, prof
+        counts.append(launches)
+    check(False, f"profiles of the same step count {counts} device kernels a step: the "
+                 "profiler lost events, so no idle share is measured")
+
+
+def metatrain_phase(torch, dev, card, work):
+    """Phase 16: ICL meta-training on the card (the default config through
+    cli.pretrain_icl, device and host prior; the regressor; the TINY
+    learning proof; the estimators meta-training where no asset applies)."""
+    from multimodal_ad_tpu_torch.cli import pretrain_icl as cli_pretrain
+    from multimodal_ad_tpu_torch.tabular import icl as ticl
+    from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state, tree_leaves
+    from multimodal_ad_tpu_torch.tabular.icl_prior import sample_tasks_device
+    from multimodal_ad_tpu_torch.tabular.icl_regression import RegICLConfig, _load_reg_params_file
+    from multimodal_ad_tpu_torch.tabular.meta_train import MetaTrainer
+    from multimodal_ad_tpu_torch.tabular.regression import ICLRegressor
+    from multimodal_ad_tpu_torch.utils.torch_weights import icl_state_dict_from_flax
+
+    out = {}
+    t_phase = time.time()
+    cfg = ticl.ICLConfig()
+    log(f"== 16. ICL meta-training: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.max_features} features, {cfg.max_classes} classes, cat_input; batch "
+        f"{META_BATCH}, n_ctx {META_CTX}, n_qry {META_QRY}")
+    mdir = os.path.join(work, "metatrain")
+    os.makedirs(mdir, exist_ok=True)
+    base = ["--batch", str(META_BATCH), "--n-ctx", str(META_CTX), "--n-qry", str(META_QRY),
+            "--cat-input", "--aux-embed", "0.5", "--aux-qc", "0.5", "--device", "cuda"]
+
+    # (a) the CLI, device prior and host prior
+    files = {}
+    for label, steps, extra in (("device", META_DEVICE_STEPS, ["--device-prior", "--chunk", "100"]),
+                                ("host", META_HOST_STEPS, [])):
+        files[label] = os.path.join(mdir, f"icl_{label}.msgpack")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli_pretrain.main(["--steps", str(steps), "--out", files[label]] + base + extra)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        out[f"cli_{label}_s"] = wall
+        out[f"cli_{label}_steps_per_s"] = steps / wall
+        log(f"  (a) cli.pretrain_icl, {label} prior, {steps} steps (aux_embed 0.5, aux_qc 0.5): "
+            f"{wall:.2f} s, {steps / wall:.2f} meta-steps/s (network build and file write "
+            f"included)")
+
+    # the same step at steady state: CUDA events, and a profile for the idle share
+    net = ticl.ICLTransformer(cfg)
+    net.load_state_dict(icl_state_dict_from_flax(ticl.init_icl_params(cfg, SEED), cfg))
+    trainer = MetaTrainer(net.to(dev).train(), 3e-4, 1000, lambda m, t: ticl.icl_meta_loss(
+        m, t, aux_embed=0.5, aux_qc=0.5))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw():
+        return sample_tasks_device(gen, META_BATCH, cfg, META_CTX, META_QRY)
+
+    rng = np.random.default_rng(SEED)
+
+    def host_task():
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                ticl.sample_tasks(rng, META_BATCH, cfg, META_CTX, META_QRY).items()}
+
+    flops = 3 * icl_forward_flops(cfg, META_BATCH, META_CTX, META_QRY)
+    out["step_bound_ms"] = flops / F32_OPS_PER_S * 1e3
+    sampler_ms, _ = step_events(torch, draw, 20)
+    for label, fn in (("device", lambda: trainer.step(draw())),
+                      ("host", lambda: trainer.step(host_task()))):
+        step_ms, _ = step_events(torch, fn, 20)
+        d_ms, kernels, prof = _profiled_steps(torch, fn, 10)
+        out.update({f"{label}_prior_step_ms": step_ms,
+                    f"{label}_prior_steps_per_s": 1e3 / step_ms,
+                    f"{label}_prior_device_ms": d_ms, f"{label}_prior_kernels": kernels,
+                    f"{label}_prior_idle": 1 - d_ms / step_ms})
+        log(f"  (a) {label} prior, steady state: {step_ms:.2f} ms a step (CUDA events, median "
+            f"of 20: {1e3 / step_ms:.2f} meta-steps/s), {d_ms:.2f} ms of it device time (a "
+            f"profile of 10 steps): the card idles {1 - d_ms / step_ms:.1%}; {kernels:.0f} "
+            f"device kernels and copies a step")
+        if label == "device":
+            log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=10,
+                                          max_name_column_width=70))
+    out.update(sampler_ms=sampler_ms, sampler_share=sampler_ms / out["device_prior_step_ms"])
+    log(f"  (a) device prior: sampler {sampler_ms:.2f} ms of a {out['device_prior_step_ms']:.2f} "
+        f"ms step (CUDA events, median of 20): {out['sampler_share']:.1%} of the step; the "
+        f"step's fp32 bound {out['step_bound_ms']:.2f} ms ({flops / 1e9:.1f} GFLOP forward + "
+        f"backward at 67 TFLOP/s) on {card}")
+    del trainer, net
+
+    # (b) the written files read back
+    tree = ticl._load_params_file(cfg, files["device"])
+    stored = dict(tree_leaves(read_state(files["device"])))
+    merged = ticl.merge_compatible_params(ticl.init_icl_params(cfg, 1), files["device"],
+                                          verbose=True)
+    same = all(np.array_equal(v, stored[k]) for k, v in tree_leaves(merged))
+    log(f"  (b) {files['device']}: {len(stored)} leaves, read by the port's loader and "
+        f"converter; merge_compatible_params takes every leaf from the file: {same}")
+    check(len(stored) == 107 and same, "the meta-trained file does not read back whole")
+    X, y = _separable_data()
+    clf = ticl.ICLClassifier(params=tree, device="cuda").fit(X[:60], y[:60])
+    acc_full = float((clf.predict(X[60:]) == y[60:]).mean())
+    log(f"  (b) ICLClassifier(params=<the {META_DEVICE_STEPS}-step file>) on the separable "
+        f"table: accuracy {acc_full:.3f}")
+    out["full_width_file_acc"] = acc_full
+
+    # (c) the JAX package's device-prior learning proof, its config and bar
+    tiny = ticl.ICLConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16,
+                          max_classes=4, max_context=64)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params, _ = ticl.pretrain_icl(tiny, steps=300, batch=16, n_ctx=48, n_qry=16, lr=1e-3,
+                                  seed=0, device_prior=True, chunk=50, device="cuda")
+    proof_s = time.time() - t0
+    clf = ticl.ICLClassifier(params=params, cfg=tiny, device="cuda").fit(X[:60], y[:60])
+    acc = float((clf.predict(X[60:]) == y[60:]).mean())
+    out.update(tiny_proof_s=proof_s, tiny_proof_acc=acc)
+    log(f"  (c) TINY, 300 steps, device prior, chunk 50: {proof_s:.2f} s; accuracy {acc:.3f} "
+        "(bar 0.8)")
+    check(acc >= 0.8, f"device-prior meta-trained accuracy {acc} < 0.8")
+
+    # (d) the estimators meta-train where no asset applies
+    t0 = time.time()
+    est = ticl.ICLClassifier(cfg=tiny).fit(X[:60], y[:60])
+    acc_d = float((est.predict(X[60:]) == y[60:]).mean())
+    clf_s = time.time() - t0
+    rc = RegICLConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16,
+                      max_context=64)
+    target = X[:, 0] * 2.0 - X[:, 1]
+    t0 = time.time()
+    reg = ICLRegressor(cfg=rc).fit(X[:60], target[:60])
+    pred = reg.predict(X[60:])
+    reg_s = time.time() - t0
+    r2 = 1 - float(np.mean((pred - target[60:]) ** 2) / np.var(target[60:]))
+    out.update(est_clf_s=clf_s, est_clf_acc=acc_d, est_reg_s=reg_s, est_reg_r2=r2)
+    log(f"  (d) ICLClassifier(cfg=TINY) with no params: meta-trained (300 host-prior steps) "
+        f"and fitted in {clf_s:.2f} s, accuracy {acc_d:.3f}; ICLRegressor(cfg=<TINY "
+        f"RegICLConfig>): 300 device-prior steps and fit in {reg_s:.2f} s, R^2 {r2:.3f}")
+    # the classifier is held to the TINY proof's bar; the regressor only to
+    # finite predictions, since the JAX package's TINY regressor after 300
+    # steps does not fit this table either (R^2 below 0 on the CPU:
+    # scripts/port_parity_cpu.py --only pretrain)
+    check(acc_d >= 0.8, f"ICLClassifier(cfg=TINY) meta-trained without an asset: accuracy "
+                        f"{acc_d} < 0.8")
+    check(pred.shape == target[60:].shape and np.isfinite(pred).all(),
+          "ICLRegressor(cfg=<TINY RegICLConfig>) without an asset did not predict finite values")
+    log("  (d) checks: the classifier's accuracy >= 0.8; the regressor's R^2 is printed, not "
+        "checked (its predictions finite and of the table's length)")
+
+    # (e) the regression network through the CLI
+    reg_file = os.path.join(mdir, "icl_reg.msgpack")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli_pretrain.main(["--regression", "--steps", str(META_REG_STEPS), "--chunk", "20",
+                       "--batch", str(META_BATCH), "--n-ctx", str(META_CTX), "--n-qry",
+                       str(META_QRY), "--device", "cuda", "--out", reg_file])
+    wall = time.time() - t0
+    _load_reg_params_file(RegICLConfig(), reg_file)
+    out.update(cli_reg_s=wall, cli_reg_steps_per_s=META_REG_STEPS / wall)
+    log(f"  (e) cli.pretrain_icl --regression, {META_REG_STEPS} steps: {wall:.2f} s, "
+        f"{META_REG_STEPS / wall:.2f} meta-steps/s; the file reads back")
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 16 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+FUSION_PER_CLASS = 20  # 40 subjects: 8 test, 2 folds of 16 train / 16 validation
+FUSION_EPOCHS = 3
+FUSION_FEATURES = 20
+
+
+def write_fusion_table(path, records, seed):
+    """A clinical table keyed by the manifest's subjects: Subject_ID,
+    Group, 12 filler columns, then FUSION_FEATURES numeric features shifted
+    by 0.8 x the label (features from column 14)."""
+    from multimodal_ad_tpu_torch.data.tabular import write_table
+
+    rng = np.random.default_rng(seed)
+    y = np.array([r["label"] for r in records])
+    cols = {"Subject_ID": np.array([r["Subject"] for r in records], dtype=object),
+            "Group": np.array([("AD", "CN")[v] for v in y], dtype=object)}
+    for j in range(12):
+        cols[f"meta{j}"] = rng.normal(size=len(y)).round(3)
+    for j in range(FUSION_FEATURES):
+        cols[f"feat{j}"] = (rng.normal(size=len(y)) + 0.8 * y).astype(np.float32)
+    return write_table(path, cols)
+
+
+def fusion_phase(torch, dev, card, work):
+    """Phase 17: multimodal fusion training on the card (cli.train_fusion
+    with MRI + PET + table at the CLI's widths, the DAFT arch, the JAX
+    package's learning bars, card against host)."""
+    from multimodal_ad_tpu_torch.cli import train_fusion as cli_fusion
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.data.adni import ADNIManifest
+    from multimodal_ad_tpu_torch.data.pipeline import VolumeBatcher
+    from multimodal_ad_tpu_torch.data.splits import stratified_kfold, stratified_test_split
+    from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir
+    from multimodal_ad_tpu_torch.models.daft import DAFTResNet
+    from multimodal_ad_tpu_torch.models.transformer import MultimodalClassifier
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.eval.features import deterministic_cudnn
+    from multimodal_ad_tpu_torch.tabular import ICLClassifier
+    from multimodal_ad_tpu_torch.train import fusion
+    from multimodal_ad_tpu_torch.train import loop
+    from multimodal_ad_tpu_torch.train.cv import _run_epoch as run_epoch
+
+    out = {}
+    t_phase = time.time()
+    log(f"== 17. fusion training: MRI + PET + table, 91x109x91, batch {BATCH}, bf16")
+    root = os.path.join(work, "fusion")
+    t0 = time.time()
+    csv_path, mri, pet = make_adni_dir(root, n_per_class=FUSION_PER_CLASS, classes=("AD", "CN"),
+                                       shape=VOL_SHAPE, seed=SEED + 60, pet=True,
+                                       extent_jitter=0.3, center_jitter=0.04, noise=0.25)
+    recs = ADNIManifest(csv_path, mri, pet_dir=pet, verbose=False).data_dict
+    table = write_fusion_table(os.path.join(root, "table.csv"), recs, SEED + 61)
+    log(f"wrote {len(recs)} subjects (MRI and PET) and a {FUSION_FEATURES}-feature table in "
+        f"{time.time() - t0:.1f} s")
+    tr_val, test_recs = stratified_test_split(recs, 0.2, 42)
+    folds = list(stratified_kfold(tr_val, 2, 42))
+    batches = sum(-(-len(d) // BATCH) for _, tr, vl in folds for d in (tr, vl))
+
+    # (a) the main path: cli.train_fusion --use-pet --use-table at the CLI's widths
+    ckpt_dir = os.path.join(root, "ckpt")
+    cfg_args = [f"label_file={csv_path}", f"mri_dir={mri}", f"pet_dir={pet}",
+                f"batch_size={BATCH}", "compute_dtype=bfloat16", "n_splits=2", "lr=1e-3",
+                "normalizer=scale_intensity",
+                f"checkpoint_dir={ckpt_dir}"]
+    fg.gather_normalize.launches = 0
+    before = reads_now()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    best = cli_fusion.main(["--use-pet", "--use-table", "--table", table, "--dim", "128",
+                            "--depth", "2", "--device", "cuda", f"num_epochs={FUSION_EPOCHS}"]
+                           + cfg_args)
+    torch.cuda.synchronize()
+    out["cli_s"] = time.time() - t0
+    out["k1_launches"] = fg.gather_normalize.launches
+    out["cli_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    reads = reads_since(before)
+    expect = FUSION_EPOCHS * batches * 2
+    log(f"  (a) cli.train_fusion --use-pet --use-table (dim 128, depth 2, heads 4, dim_head "
+        f"32, mlp 256), 2 folds x {FUSION_EPOCHS} epochs: {out['cli_s']:.1f} s (the ICL "
+        f"embedder's fits included); best fold scores {[round(b, 4) for b in best]}; K1 "
+        f"launches {out['k1_launches']} (expected {expect}: MRI and PET of every batch); "
+        f"reads {reads}; peak memory {out['cli_peak_gb']:.2f} GB")
+    check(out["k1_launches"] == expect, f"fusion ran K1 {out['k1_launches']} times, "
+          f"expected {expect}")
+    check_native_reads(reads, "phase 17 (a)")
+    with open(os.path.join(ckpt_dir, "fusion_results.csv")) as f:
+        rows = list(csv.reader(f))
+    il, vl = rows[0].index("tr_loss"), rows[0].index("vl_loss")
+    losses = [(float(r[il]), float(r[vl])) for r in rows[1:]]
+    check(len(rows) == 1 + 2 * FUSION_EPOCHS and bool(np.isfinite(losses).all())
+          and all(np.isfinite(best)), f"fusion_results.csv {rows}")
+    for k in (1, 2):
+        check(os.path.isfile(os.path.join(ckpt_dir, f"fusion_best_fold{k}", "model.pt")),
+              f"fusion_best_fold{k} missing")
+    log(f"  (a) fusion_results.csv (tr_loss, vl_loss): {losses}")
+    out["best"] = best
+
+    # the step's rate at steady state: one batch of 8 subjects (8 MRI + 8 PET
+    # volumes) resident, K1 on each modality + the train step
+    cfg = Config(batch_size=BATCH, compute_dtype="bfloat16", dropout_rate=0.5)
+    table_dim = 296  # the rich embedding of the default ICLClassifier
+    model = fusion.make_fusion_model(cfg, "cross_transformer", True, True, table_dim,
+                                     dict(dim=128, depth=2), seed=SEED).to(dev)
+    state = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20), dropout_seed=1)
+    step, _ = fusion.make_fusion_steps("cross_transformer", True, True)
+    loader = VolumeBatcher(tr_val[:BATCH], batch_size=BATCH, image_keys=("MRI", "PET"),
+                           table_lookup={r["Subject"]: np.random.default_rng(i).normal(
+                               size=table_dim).astype(np.float32)
+                               for i, r in enumerate(tr_val)})
+    raw = next(iter(loader))
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw.items() if isinstance(v, np.ndarray)}
+    cw = torch.tensor([0.5, 0.5], device=dev)
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
+
+    def one_step():
+        b = dict(raw, image=scale_intensity(raw["image"]), pet=scale_intensity(raw["pet"]))
+        return step(state, b, cw)
+
+    step_ms, first_s = step_events(torch, one_step, 10)
+    out.update(step_ms=step_ms, first_step_s=first_s,
+               vols_per_s=2 * BATCH / (step_ms / 1e3), subjects_per_s=BATCH / (step_ms / 1e3))
+    d_ms, kernels, prof = _profiled_steps(torch, one_step, 5)
+    out.update(device_ms=d_ms, kernels_per_step=kernels, idle_resident=1 - d_ms / step_ms)
+    log(f"  (a) train step, resident batch of {BATCH} subjects: {step_ms:.2f} ms (CUDA events, "
+        f"median of 10; the first {first_s:.2f} s with cuDNN's autotune): "
+        f"{out['vols_per_s']:.1f} vols/s counting MRI and PET volumes "
+        f"({out['subjects_per_s']:.1f} subjects/s); {d_ms:.2f} ms of it device time (a "
+        f"profile of 5 steps): the card idles {out['idle_resident']:.1%}; {kernels:.0f} device "
+        f"kernels and copies a step; on {card}")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                  max_name_column_width=70))
+    # the streamed epoch as the CLI runs it: decode on host threads, upload, K1, step
+    lookup = {r["Subject"]: np.zeros(table_dim, np.float32) for r in tr_val}
+    stream = VolumeBatcher(tr_val, batch_size=BATCH, image_keys=("MRI", "PET"),
+                           table_lookup=lookup, num_threads=8)
+    run_epoch(step, state, stream, dev, train=True, class_weights=cw)  # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run_epoch(step, state, stream, dev, train=True, class_weights=cw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    n_steps = len(stream)
+    d_ms, kernels = profile_split(torch, prof, n_steps)
+    out.update(stream_wall_s=wall, stream_idle=1 - d_ms * n_steps / 1e3 / wall,
+               stream_vols_per_s=2 * len(tr_val) / wall)
+    log(f"  (a) streamed epoch of {len(tr_val)} subjects ({n_steps} steps, 8 decode threads): "
+        f"{wall:.2f} s, {out['stream_vols_per_s']:.1f} vols/s (MRI + PET); the card idles "
+        f"{out['stream_idle']:.1%} (profiler on over the epoch)")
+    del state, model, raw
+
+    # (b) --arch daft --use-table, one epoch
+    daft_dir = os.path.join(root, "daft")
+    fg.gather_normalize.launches = 0
+    t0 = time.time()
+    best_d = cli_fusion.main(["--arch", "daft", "--use-table", "--table", table, "--device",
+                              "cuda", "num_epochs=1", f"label_file={csv_path}",
+                              f"mri_dir={mri}", f"batch_size={BATCH}", "compute_dtype=bfloat16",
+                              "n_splits=2", "lr=1e-3", f"checkpoint_dir={daft_dir}"])
+    torch.cuda.synchronize()
+    out.update(daft_cli_s=time.time() - t0, daft_k1_launches=fg.gather_normalize.launches,
+               daft_best=best_d)
+    log(f"  (b) cli.train_fusion --arch daft --use-table, 2 folds x 1 epoch: "
+        f"{out['daft_cli_s']:.1f} s, best fold scores {[round(b, 4) for b in best_d]}, K1 "
+        f"launches {out['daft_k1_launches']} (expected {batches})")
+    check(out["daft_k1_launches"] == batches and all(np.isfinite(best_d)),
+          "the DAFT run did not complete")
+
+    # (c) the JAX package's TestFusionLearning at its small widths and 16^3
+    sep = os.path.join(root, "sep")
+    c_csv, c_mri, c_pet = make_adni_dir(sep, n_per_class=24, classes=("AD", "CN"),
+                                        shape=(16, 16, 16), seed=9, pet=True,
+                                        extent_jitter=0.3, center_jitter=0.04, noise=0.25)
+    m = ADNIManifest(c_csv, c_mri, "ADCN", pet_dir=c_pet, verbose=False).data_dict
+    rng = np.random.default_rng(0)
+    y = np.asarray([r["label"] for r in m])
+    tX = (rng.normal(size=(len(m), 6)) + 1.5 * y[:, None]).astype(np.float32)
+    lcfg = Config(label_file=c_csv, mri_dir=c_mri, pet_dir=c_pet, task="ADCN", num_epochs=20,
+                  batch_size=4, lr=1e-3, n_splits=2, checkpoint_dir=os.path.join(sep, "ckpt"),
+                  compute_dtype="float32", loader_threads=2)
+    kw = dict(use_pet=True, use_table=True, table_data=(tX, y, [r["Subject"] for r in m]),
+              model_kw=dict(dim=16, depth=1, heads=2, dim_head=8, mlp_dim=32),
+              embedder=ICLClassifier(), device="cuda", verbose=False)
+    t0 = time.time()
+    with deterministic_cudnn():  # the same result in every run on this card
+        lbest, _ = fusion.train_fusion_cv(lcfg, records=m, **kw)
+        l_tr, l_te = stratified_test_split(m, lcfg.split_ratio, lcfg.seed)
+        res = fusion.test_fusion_models(lcfg, l_te, train_subjects=[r["Subject"] for r in l_tr],
+                                        **kw)
+    out.update(learn_best=lbest, learn_test_auc=res["avg"]["AUC"], learn_s=time.time() - t0)
+    log(f"  (c) TestFusionLearning's recipe (48 subjects at 16^3, dim 16, 20 epochs, batch 4, "
+        f"fp32, cuDNN deterministic; the table embedder ICLClassifier() on the bundled asset "
+        f"in place of the JAX test's sklearn LogisticRegression): best fold scores "
+        f"{[round(b, 4) for b in lbest]} (bar 0.8 each), held-out fold-mean AUC "
+        f"{res['avg']['AUC']:.4f} (bar 0.85); {out['learn_s']:.1f} s")
+    check(all(b >= 0.8 for b in lbest), f"fusion fold scores {lbest} below 0.8")
+    check(res["avg"]["AUC"] >= 0.85, f"fusion held-out AUC {res['avg']['AUC']} below 0.85")
+
+    # (d) card against host, fp32, the same weights and inputs at full size
+    g = torch.Generator().manual_seed(SEED + 62)
+    inputs = {"image": torch.randn((2, *VOL_SHAPE, 1), generator=g) * 50 + 100,
+              "pet": torch.randn((2, *VOL_SHAPE, 1), generator=g) * 20 + 40,
+              "table": torch.randn((2, table_dim), generator=g)}
+    for name, make, args in (
+            ("MultimodalClassifier (MRI + PET + table, dim 128, depth 2)",
+             lambda: MultimodalClassifier(dim=128, depth=2, use_pet=True, use_table=True,
+                                          table_dim=table_dim, compute_dtype=torch.float32,
+                                          generator=torch.Generator().manual_seed(SEED)),
+             lambda d: ((inputs["image"].to(d),),
+                        {"pet": inputs["pet"].to(d), "table": inputs["table"].to(d)})),
+            ("DAFTResNet (layers 1/1/1/1)",
+             lambda: DAFTResNet(table_dim=table_dim, compute_dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(SEED)),
+             lambda d: ((inputs["image"].to(d), inputs["table"].to(d)), {}))):
+        host = make().eval()
+        card_m = make().to(dev).eval()
+        with torch.no_grad():
+            a, k = args("cpu")
+            ref = host(*a, **k)
+            a, k = args(dev)
+            got = card_m(*a, **k).cpu()
+        spread = float(ref.max() - ref.min())
+        err = float((got - ref).abs().max())
+        log(f"  (d) {name}, fp32, B=2 at {'x'.join(map(str, VOL_SHAPE))}, eval: card vs host "
+            f"max |d| {err:.3g} "
+            f"against a logits spread of {spread:.4g} (bound 1e-3 of the spread)")
+        check(err <= 1e-3 * max(spread, 1e-6), f"{name} card vs host {err}")
+        out[f"card_vs_host_{name.split()[0]}"] = (err, spread)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 17 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def _timed_ms(fn):
     t0 = time.perf_counter()
     fn()
@@ -2639,9 +3095,15 @@ def main() -> int:
 
     # ---- 15. tabular in-context inference -----------------------------------
     tab = tabular_phase(torch, dev, card, work)
+
+    # ---- 16. ICL meta-training -----------------------------------------------
+    meta = metatrain_phase(torch, dev, card, work)
+
+    # ---- 17. multimodal fusion training ---------------------------------------
+    fuse = fusion_phase(torch, dev, card, work)
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 16. result ----------------------------------------------------
+    # ---- 18. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -2651,7 +3113,8 @@ def main() -> int:
         "replaces": K1_REPLACES,
         "launches": (serve_launches + resident_launches + ext_k1 + train_launches
                      + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]
-                     + q8["k1_launches"] + dense["k1_launches"] + enc["k1_launches"]),
+                     + q8["k1_launches"] + dense["k1_launches"] + enc["k1_launches"]
+                     + fuse["k1_launches"] + fuse["daft_k1_launches"]),
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
@@ -2662,6 +3125,8 @@ def main() -> int:
         "launches_int8_serving": q8["k1_launches"],
         "launches_densenet_training": dense["k1_launches"],
         "launches_encoder_extraction": enc["k1_launches"],
+        "launches_fusion_training": fuse["k1_launches"],
+        "launches_daft_training": fuse["daft_k1_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2745,6 +3210,7 @@ def main() -> int:
                     "native_decoder": dict(native, build_s=native_build_s),
                     "densenet": dense, "encoder": enc,
                     "mshyper_and_tools": tools, "tabular": tab,
+                    "metatrain": meta, "fusion": fuse,
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -6,7 +6,8 @@
   encoding is one the native decoder does not cover (not 3-D, an unknown
   datatype). ``MAD_NO_NATIVE_IO=1`` forces the Python reader. Both give
   the same bits;
-- `VolumeBatcher`: batches of decoded volumes, decoded by a thread pool one
+- `VolumeBatcher`: batches of decoded volumes (one modality or several,
+  with an optional per-subject table vector), decoded by a thread pool one
   batch ahead of the consumer. A ragged last batch is padded to the static
   size with real rows cycled from the order, and `mask` marks the real
   rows, so every forward sees one shape. `VolumeBatcher.reads` counts the
@@ -56,20 +57,24 @@ def load_volume(path: str) -> np.ndarray:
 
 
 class VolumeBatcher:
-    """Iterates records ({'MRI': path, 'label', 'Subject'}) in order, in
-    batches of decoded volumes.
+    """Iterates records ({'MRI': path, 'label', 'Subject'}, plus a path per
+    further key of `image_keys`) in order, in batches of decoded volumes.
 
     Yields host dicts {'image': (B, X, Y, Z, 1) f32 raw intensities,
     'label': (B,) i32, 'mask': (B,) f32, 'subject': list[str]} with B padded
     to `batch_size` (`mask` marks the real rows, which come first, and
-    `subject` names only them). Normalization runs on the device. With
-    `shuffle`, each epoch's order is ``np.random.default_rng((seed,
-    epoch))``'s shuffle (epoch counts the iterations started), as in the
-    TPU package. With a `transform` (data/transforms.py), each batch also
-    holds 'plan': the host entry of one `AugmentPlan` a row, drawn for the
-    row's position in `records` and the epoch (a padding row repeats its
-    source's), which the device applies after normalizing. Other
-    modalities are not ported."""
+    `subject` names only them). The first of `image_keys` is 'image'; each
+    further one (e.g. "PET") is one more (B, X, Y, Z, 1) entry under its
+    lowercase name ('pet'). With `table_lookup` ({subject: vector}) each
+    batch also holds 'table', the rows' vectors stacked as float32.
+    Normalization runs on the device, per modality. With `shuffle`, each
+    epoch's order is ``np.random.default_rng((seed, epoch))``'s shuffle
+    (epoch counts the iterations started), as in the TPU package. With a
+    `transform` (data/transforms.py), each batch also holds 'plan': the
+    host entry of one `AugmentPlan` a row, drawn for the row's position in
+    `records` and the epoch (a padding row repeats its source's); the
+    device applies it to every modality of the row after normalizing, as
+    the TPU package draws one plan per (row, epoch) for each."""
 
     # decodes of every batcher in the process, by reader
     reads = {"native": 0, "python": 0, "custom": 0}
@@ -77,7 +82,7 @@ class VolumeBatcher:
 
     def __init__(self, records, batch_size: int = 8, num_threads: int = 8,
                  loader=load_volume, shuffle: bool = False, seed: int = 0,
-                 transform=None):
+                 transform=None, image_keys=("MRI",), table_lookup=None):
         self.records = list(records)
         self.batch_size = batch_size
         self.num_threads = num_threads
@@ -85,17 +90,23 @@ class VolumeBatcher:
         self.shuffle = shuffle
         self.seed = seed
         self.transform = transform
+        self.image_keys = tuple(image_keys)
+        self.table_lookup = table_lookup
         self._epoch = 0
 
     def __len__(self):
         return (len(self.records) + self.batch_size - 1) // self.batch_size
 
     def _decode(self, rec):
-        if self.loader is load_volume:
-            vol, reader = read_volume(rec["MRI"])
-        else:
-            vol, reader = self.loader(rec["MRI"]), "custom"
-        return vol[..., None], rec["label"], rec["Subject"], reader
+        vols, readers = [], []
+        for key in self.image_keys:
+            if self.loader is load_volume:
+                vol, reader = read_volume(rec[key])
+            else:
+                vol, reader = self.loader(rec[key]), "custom"
+            vols.append(vol[..., None])
+            readers.append(reader)
+        return vols, rec["label"], rec["Subject"], readers
 
     def _chunks(self):
         """(indices, n_real) per batch of the next epoch's order; a ragged
@@ -131,14 +142,19 @@ class VolumeBatcher:
                 pending = submit(chunks[ci + 1][0]) if ci + 1 < len(chunks) else None
                 vols, labels, subjects, readers = zip(*(f.result() for f in futures))
                 with self._reads_lock:
-                    for reader in readers:
-                        self.reads[reader] += 1
+                    for row in readers:
+                        for reader in row:
+                            self.reads[reader] += 1
                 mask = np.ones((len(vols),), np.float32)
                 mask[n_real:] = 0.0
-                batch = {"image": np.stack(vols).astype(np.float32),
-                         "label": np.asarray(labels, np.int32),
-                         "mask": mask,
-                         "subject": list(subjects[:n_real])}
+                batch = {"image": np.stack([v[0] for v in vols]).astype(np.float32)}
+                for ki, key in enumerate(self.image_keys[1:], 1):
+                    batch[key.lower()] = np.stack([v[ki] for v in vols]).astype(np.float32)
+                if self.table_lookup is not None:
+                    batch["table"] = np.stack([np.asarray(self.table_lookup[s], np.float32)
+                                               for s in subjects])
+                batch.update(label=np.asarray(labels, np.int32), mask=mask,
+                             subject=list(subjects[:n_real]))
                 if self.transform is not None:
                     batch["plan"] = [self.transform.plan(int(i), epoch) for i in chunk]
                 yield batch

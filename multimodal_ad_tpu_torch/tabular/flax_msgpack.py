@@ -12,6 +12,12 @@ module decodes the msgpack subset those files use and returns nested dicts
 of numpy arrays in their stored dtype. It raises on anything it does not
 know (an unused type byte, another extension type, a chunked array leaf,
 a dtype numpy has no name for) rather than guess.
+
+`to_bytes` / `write_state` are the inverse: for a tree of dicts (string
+keys, in their iteration order) with numpy array leaves they write the
+bytes ``flax.serialization.to_bytes`` writes, choosing msgpack's smallest
+encoding of every length and integer as the ``msgpack`` package does.
+Arrays over 2**30 bytes (which flax would chunk) are refused.
 """
 
 from __future__ import annotations
@@ -155,3 +161,140 @@ def tree_leaves(tree, prefix=()):
             out.extend(tree_leaves(v, prefix + (k,)))
         return out
     return [(prefix, tree)]
+
+
+# ----------------------------------------------------------------------
+# writing
+# ----------------------------------------------------------------------
+
+def _pack_uint(out: bytearray, n: int, small_max: int, small_tag: int, tags: tuple):
+    """A length or count: `small_tag | n` up to `small_max`, else the first
+    of `tags` (8/16/32-bit, big-endian) that holds it."""
+    if n <= small_max:
+        out.append(small_tag | n)
+        return
+    for tag, fmt in tags:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(out: bytearray, v: int):
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for tag, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+            if v < 1 << (8 * struct.calcsize(fmt)):
+                out.append(tag)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} too large for msgpack")
+    else:
+        for tag, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+            if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                out.append(tag)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"integer {v} too small for msgpack")
+
+
+def _pack_bytes(out: bytearray, b: bytes):
+    n = len(b)
+    for tag, fmt in ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            out += b
+            return
+    raise ValueError("bytes too long for msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes):
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        for tag, fmt in ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                out.append(tag)
+                out += struct.pack(fmt, n)
+                break
+        else:
+            raise ValueError("extension payload too long for msgpack")
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _array_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not serializable")
+    if arr.nbytes > 1 << 30:
+        raise ValueError("arrays over 2**30 bytes (flax chunks them) are not supported")
+    return packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: bytearray, v):
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, np.ndarray):
+        _pack_ext(out, 1, _array_payload(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, 3, _array_payload(np.asarray(v)))
+    elif isinstance(v, int):
+        _pack_int(out, v)
+    elif isinstance(v, float):
+        out.append(0xCB)
+        out += struct.pack(">d", v)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _pack_uint(out, len(b), 31, 0xA0, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out += b
+    elif isinstance(v, (bytes, bytearray)):
+        _pack_bytes(out, bytes(v))
+    elif isinstance(v, (list, tuple)):
+        _pack_uint(out, len(v), 15, 0x90, ((0xDC, ">H"), (0xDD, ">I")))
+        for item in v:
+            _pack(out, item)
+    elif isinstance(v, dict):
+        _pack_uint(out, len(v), 15, 0x80, ((0xDE, ">H"), (0xDF, ">I")))
+        for k, item in v.items():
+            _pack(out, k)
+            _pack(out, item)
+    else:
+        raise TypeError(f"cannot serialize {type(v).__name__}")
+
+
+def packb(obj) -> bytes:
+    """msgpack encoding of `obj` (dicts, lists, tuples, str, bytes, int,
+    float, bool, None; numpy arrays and scalars as flax's extension types 1
+    and 3)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def to_bytes(tree) -> bytes:
+    """``flax.serialization.to_bytes`` of a nested dict of numpy arrays:
+    keys become strings, in the dict's order."""
+    def state(t):
+        if isinstance(t, dict):
+            keys = [str(k) for k in t]
+            if len(set(keys)) != len(keys):
+                raise ValueError("dict keys have no unique string form")
+            return {str(k): state(v) for k, v in t.items()}
+        return t
+    return packb(state(tree))
+
+
+def write_state(path: str, tree) -> int:
+    """Write `tree` to `path` as flax's msgpack state; returns the byte
+    count."""
+    blob = to_bytes(tree)
+    with open(path, "wb") as f:
+        f.write(blob)
+    return len(blob)

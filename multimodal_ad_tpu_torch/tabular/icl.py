@@ -1,7 +1,5 @@
-"""In-context tabular learner (TabPFN-style prior-fitted transformer):
-the inference path, in PyTorch.
-
-Own copy of the TPU package's tabular/icl.py, minus meta-training:
+"""In-context tabular learner (TabPFN-style prior-fitted transformer), in
+PyTorch (own copy of the TPU package's tabular/icl.py):
 
 - a row-token transformer: each table row is one token (feature values
   z-scored by context statistics, projected to d_model); context rows add a
@@ -13,7 +11,10 @@ Own copy of the TPU package's tabular/icl.py, minus meta-training:
   still run through the trunk, and their keys are masked;
 - `ICLClassifier.fit` stores the preprocessed, padded context and its
   permuted views on the device; `predict_proba` / `get_embeddings` run one
-  batched forward over the views. No gradient at inference.
+  batched forward over the views. No gradient at inference;
+- meta-training (`pretrain_icl`) on synthetic tasks from the random-function
+  prior: `sample_tasks` on the host (the TPU package's numpy draws, array
+  for array) or `icl_prior.sample_tasks_device` on the card.
 
 The network follows flax's defaults, not torch's: LayerNorm epsilon 1e-6,
 the tanh approximation of GELU, the query scaled by 1/sqrt(head_dim) before
@@ -24,9 +25,9 @@ product, mask and softmax.
 Weights: the bundled meta-trained assets (`assets/*.msgpack`, flax
 state, read by `flax_msgpack.py` and converted by
 `utils/torch_weights.py::icl_state_dict_from_flax`) under the same policy
-as the TPU package (`resolve_asset_params`). Meta-training is not ported
-to this package: where no asset applies and no `params` are given, the
-estimators raise NotImplementedError instead of training one.
+as the TPU package (`resolve_asset_params`). Where no asset applies and no
+`params` are given, the estimators meta-train a network on their device,
+as the TPU package does, and keep it in the process-wide cache.
 
 The host preprocessing (imputation, width screen, whiten / quantile /
 onehot / pairs, context buckets) is the TPU package's numpy code, with
@@ -204,6 +205,278 @@ def _zscore_by_ctx(x_ctx, x_qry, ctx_mask):
     return (x_ctx - mean) / std * m, (x_qry - mean) / std
 
 
+# ----------------------------------------------------------------------
+# the synthetic-task prior of meta-training (host numpy)
+# ----------------------------------------------------------------------
+
+def _rand_cut_labels(rng: np.random.Generator, score, c: int):
+    """Bucket `score` at RANDOM cut quantiles (sorted uniforms in
+    [0.05, 0.95]): every bucketed task family carries random class
+    imbalance."""
+    u = np.sort(rng.uniform(0.05, 0.95, c - 1))
+    return np.digitize(score, np.quantile(score, u))
+
+
+#: default family mixture weights (cluster, correlated-latent,
+#: pairwise-interaction, periodic, shallow-MLP); cumulative thresholds
+#: 0.22/0.40/0.62/0.74 — shared by the host sampler and the device prior.
+DEFAULT_FAMILY_MIX = (0.22, 0.18, 0.22, 0.12, 0.26)
+
+
+def _mix_thresholds(mix):
+    """Normalize 5 family weights to the 4 cumulative cut points used by
+    the samplers' `kind` draw."""
+    w = np.asarray(mix, np.float64)
+    if w.shape != (5,) or (w < 0).any() or w.sum() <= 0:
+        raise ValueError("mix must be 5 non-negative family weights")
+    cum = np.cumsum(w / w.sum())
+    return tuple(float(t) for t in cum[:4])
+
+
+def sample_tasks(rng: np.random.Generator, batch: int, cfg: ICLConfig,
+                 n_ctx: int, n_qry: int, var_ctx: bool = True,
+                 mix=None):
+    """Random-function prior: gaussian/mixed/correlated features ->
+    random score (cluster, latent-linear, pairwise-interaction, periodic,
+    or shallow MLP) -> quantile-bucketed labels (+ label noise). The TPU
+    package's sampler, draw for draw: the same `rng` gives the same arrays.
+
+    With ``var_ctx`` each task draws a random VALID context length in
+    [16, n_ctx] (the tail is zeroed and masked out). ``mix`` overrides the
+    five family weights (``DEFAULT_FAMILY_MIX``)."""
+    F, C = cfg.max_features, cfg.max_classes
+    t1, t2, t3, t4 = _mix_thresholds(DEFAULT_FAMILY_MIX if mix is None
+                                     else mix)
+    n = n_ctx + n_qry
+    x = np.zeros((batch, n, F), np.float32)
+    y = np.zeros((batch, n), np.int64)
+    cat = np.zeros((batch, F), np.float32)  # per-task categorical columns
+    for b in range(batch):
+        f = int(rng.integers(3, max(4, F // 2) + 1))
+        # class count skewed toward binary, still covering the alphabet
+        c = 2 if (C > 2 and rng.random() < 0.5) else int(rng.integers(2, C + 1))
+        kind = rng.random()
+        if kind < t1:
+            # cluster prior: class-conditional gaussians with random
+            # separation, Dirichlet class frequencies, a few columns
+            # quantized to integer codes
+            sep = rng.uniform(0.5, 3.0)
+            centers = rng.normal(size=(c, f)).astype(np.float32) * sep
+            probs = rng.dirichlet(np.full(c, rng.uniform(0.4, 3.0)))
+            probs = 0.9 * probs + 0.1 / c  # keep every class reachable
+            lab = rng.choice(c, size=n, p=probs)
+            xs = centers[lab] + rng.normal(size=(n, f)).astype(np.float32)
+            n_cat = int(rng.integers(0, max(1, f // 3) + 1))
+            for jcol in rng.choice(f, n_cat, replace=False):
+                xs[:, jcol] = np.digitize(xs[:, jcol],
+                                          [-0.5, 0.5]).astype(np.float32)
+                cat[b, jcol] = 1.0
+        elif kind < t2:
+            # correlated-latent prior: features are linear mixes of fewer
+            # latents plus small noise; half the tasks score on the
+            # latents, half on a direction drawn in whitened coordinates
+            k = int(rng.integers(1, max(2, f // 2) + 1))
+            z = rng.normal(size=(n, k)).astype(np.float32)
+            mix = rng.normal(size=(k, f)).astype(np.float32)
+            eps = rng.uniform(0.02, 0.3)
+            xs = z @ mix + eps * rng.normal(size=(n, f)).astype(np.float32)
+            if rng.random() < 0.5:
+                score = z @ rng.normal(size=k).astype(np.float32)
+            else:
+                cov = np.cov(xs, rowvar=False) + 1e-6 * np.eye(f)
+                evals, evecs = np.linalg.eigh(cov)
+                w = evecs @ (rng.normal(size=f) / np.sqrt(evals))
+                score = (xs - xs.mean(0)) @ w.astype(np.float32)
+            lab = _rand_cut_labels(rng, score, c)
+        elif kind < t3:
+            # pairwise-interaction prior: products of feature pairs; half
+            # the tasks use SIGN products (no magnitude cue)
+            xs = rng.normal(size=(n, f)).astype(np.float32)
+            n_pairs = int(rng.integers(1, 4))
+            hard = rng.random() < 0.5
+            score = ((0.0 if hard else 0.2)
+                     * xs @ rng.normal(size=f).astype(np.float32))
+            for _ in range(n_pairs):
+                i, j = rng.choice(f, 2, replace=False)
+                term = xs[:, i] * xs[:, j]
+                if hard:
+                    term = np.sign(term)
+                score = score + rng.normal() * term
+            lab = _rand_cut_labels(rng, score, c)
+        elif kind < t4:
+            # periodic prior: sinusoids of single features
+            xs = rng.normal(size=(n, f)).astype(np.float32)
+            n_waves = int(rng.integers(1, 3))
+            score = 0.1 * xs @ rng.normal(size=f).astype(np.float32)
+            for _ in range(n_waves):
+                i = int(rng.integers(0, f))
+                w = rng.uniform(1.0, 4.0)
+                ph = rng.uniform(0, 2 * np.pi)
+                score = score + rng.normal() * np.sin(w * xs[:, i] + ph)
+            lab = _rand_cut_labels(rng, score, c)
+        else:
+            # function prior: random shallow MLP score, quantile-bucketed
+            xs = rng.normal(size=(n, f)).astype(np.float32)
+            n_cat = int(rng.integers(0, max(1, f // 3) + 1))
+            for j in rng.choice(f, n_cat, replace=False):
+                xs[:, j] = np.digitize(xs[:, j], [-0.5, 0.5]).astype(np.float32)
+                cat[b, j] = 1.0
+            h1 = np.tanh(xs @ rng.normal(size=(f, 8)).astype(np.float32)
+                         + rng.normal(size=8).astype(np.float32))
+            score = (h1 @ rng.normal(size=8).astype(np.float32)
+                     + 0.3 * xs @ rng.normal(size=f).astype(np.float32))
+            lab = _rand_cut_labels(rng, score, c)
+        # label-noise rate drawn per task, mostly near zero
+        flip_rate = (rng.uniform(0.0, 0.02) if rng.random() < 0.6
+                     else rng.uniform(0.02, 0.12))
+        flip = rng.random(lab.shape) < flip_rate
+        lab = np.where(flip, rng.integers(0, c, n), lab)
+        x[b, :, :f] = xs
+        y[b] = lab
+    ctx_mask = np.ones((batch, n_ctx), np.float32)
+    if var_ctx and n_ctx > 16:
+        for b in range(batch):
+            n_valid = int(rng.integers(16, n_ctx + 1))
+            ctx_mask[b, n_valid:] = 0.0
+            x[b, n_valid:n_ctx] = 0.0
+            y[b, n_valid:n_ctx] = 0
+    return {
+        "x_ctx": x[:, :n_ctx], "y_ctx": y[:, :n_ctx].astype(np.int32),
+        "ctx_mask": ctx_mask,
+        "x_qry": x[:, n_ctx:], "y_qry": y[:, n_ctx:].astype(np.int32),
+        "cat_mask": cat,
+    }
+
+
+# ----------------------------------------------------------------------
+# meta-training
+# ----------------------------------------------------------------------
+
+def init_icl_params(cfg: ICLConfig, seed: int = 0) -> dict:
+    """Fresh classifier weights in flax's layout, drawn from flax's
+    initializers (`meta_train.flax_init_tree`); the categorical
+    projections start at zero, as in the TPU package."""
+    from ..utils.torch_weights import icl_name_map
+    from .meta_train import flax_init_tree
+
+    return flax_init_tree(icl_name_map(cfg), seed, zero=("cat_proj", "cat_ind"))
+
+
+def icl_meta_loss(net: ICLTransformer, task: dict, aux_embed: float = 0.0,
+                  aux_tau: float = 0.2, aux_qc: float = 0.0):
+    """The meta-training loss of one task batch: the queries' NLL, plus
+    ``aux_embed`` x the supervised-contrastive loss among each task's
+    query states (same class attracts, the query itself excluded) and
+    ``aux_qc`` x the query -> valid-context contrastive loss, both at
+    temperature ``aux_tau``."""
+    from .meta_train import supervised_contrastive, unit_rows
+
+    mask = task["ctx_mask"]
+    xc, xq = _zscore_by_ctx(task["x_ctx"], task["x_qry"], mask)
+    logits, q_emb, c_emb = net(xc, task["y_ctx"], mask, xq, task.get("cat_mask"))
+    yq = task["y_qry"].long()
+    loss = -F.log_softmax(logits, -1).gather(-1, yq[..., None]).mean()
+    if aux_embed > 0.0:
+        z = unit_rows(q_emb)
+        sim = z @ z.transpose(1, 2) / aux_tau
+        others = ~torch.eye(sim.shape[1], dtype=torch.bool, device=sim.device)[None]
+        same = (yq[:, :, None] == yq[:, None, :]) & others
+        loss = loss + aux_embed * supervised_contrastive(sim, others.expand_as(same), same)
+    if aux_qc > 0.0:
+        valid = (mask > 0)[:, None, :]
+        sim = unit_rows(q_emb) @ unit_rows(c_emb).transpose(1, 2) / aux_tau
+        same = (yq[:, :, None] == task["y_ctx"].long()[:, None, :]) & valid
+        loss = loss + aux_qc * supervised_contrastive(sim, valid.expand_as(same), same)
+    return loss
+
+
+def pretrain_icl(cfg: ICLConfig = ICLConfig(), steps: int = 3000,
+                 batch: int = 32, n_ctx: int = 96, n_qry: int = 32,
+                 lr: float = 3e-4, seed: int = 0, verbose: bool = False,
+                 init_params=None, device_prior: bool = False,
+                 chunk: int = 100, mix=None, aux_embed: float = 0.0,
+                 aux_tau: float = 0.2, aux_qc: float = 0.0,
+                 device: str | torch.device = "cuda"):
+    """Meta-train the prior-fitted network on synthetic tasks on `device`;
+    returns (params, cfg), params the flax-layout tree ({'params': ...} of
+    float32 numpy arrays) that `ICLClassifier(params=...)` and the TPU
+    package take.
+
+    ``init_params`` warm-starts from such a tree (fresh optimizer state);
+    otherwise the weights are `init_icl_params(cfg, seed)`. The optimizer
+    is the TPU package's (`meta_train.MetaTrainer`). The loss is
+    `icl_meta_loss` with ``aux_embed`` / ``aux_tau`` / ``aux_qc``.
+
+    Host prior (default): one `sample_tasks` draw a step from
+    ``np.random.default_rng(seed)``, uploaded; the stream equals the TPU
+    package's (its first draw, which there builds the initial weights, is
+    drawn here too). ``device_prior``: tasks from
+    `icl_prior.sample_tasks_device` on the device, from a generator seeded
+    `seed`, ``chunk`` steps at a time with the losses read once a chunk;
+    the last chunk is cut to the remainder. ``mix`` overrides the prior's
+    family weights in both.
+
+    The network is built and trained here, outside any inference mode;
+    only the trained tree leaves."""
+    from ..utils.torch_weights import icl_flax_from_state_dict, icl_state_dict_from_flax
+    from .meta_train import MetaTrainer, run_device_chunks
+
+    dev = resolve_device(device)
+    mix_t = None if mix is None else tuple(float(w) for w in mix)
+    rng = np.random.default_rng(seed)
+    sample_tasks(rng, batch, cfg, n_ctx, n_qry)  # the TPU package's init draw
+    params = init_params if init_params is not None else init_icl_params(cfg, seed)
+    with torch.inference_mode(False), torch.enable_grad():
+        net = ICLTransformer(cfg)
+        net.load_state_dict(icl_state_dict_from_flax(params, cfg))
+        net = net.to(dev).train()
+        trainer = MetaTrainer(net, lr, steps, lambda m, t: icl_meta_loss(
+            m, t, aux_embed=aux_embed, aux_tau=aux_tau, aux_qc=aux_qc))
+        if device_prior:
+            from .icl_prior import sample_tasks_device
+
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            run_device_chunks(trainer, lambda: sample_tasks_device(
+                gen, batch, cfg, n_ctx, n_qry, True, mix_t), steps, chunk, verbose,
+                "[icl pretrain/device]")
+        else:
+            for i in range(steps):
+                task = {k: torch.from_numpy(v).to(dev) for k, v in
+                        sample_tasks(rng, batch, cfg, n_ctx, n_qry, mix=mix_t).items()}
+                loss = trainer.step(task)
+                if verbose and (i + 1) % max(1, steps // 10) == 0:
+                    print(f"[icl pretrain] step {i + 1}/{steps} loss {float(loss):.4f}")
+        return icl_flax_from_state_dict(net.state_dict(), cfg), cfg
+
+
+def merge_compatible_params(template, path: str, verbose: bool = False):
+    """Key-intersection warm start across architecture revisions: leaves of
+    `template` (a flax-layout tree) present in the file at `path` with the
+    same shape load from it as float32; the others keep their template
+    values. Returns a new tree in the template's layout."""
+    from .flax_msgpack import read_state, tree_leaves
+
+    stored = dict(tree_leaves(read_state(path)))
+    leaves = tree_leaves(template)
+    merged, hits = {}, 0
+    for k, v in leaves:
+        if k in stored and np.shape(stored[k]) == np.shape(v):
+            merged[k] = np.asarray(stored[k], np.float32)
+            hits += 1
+        else:
+            merged[k] = v
+    if verbose:
+        print(f"[icl warm start] {hits}/{len(leaves)} leaves matched "
+              f"{path} ({len(stored)} stored)")
+    out: dict = {}
+    for k, v in merged.items():
+        node = out
+        for part in k[:-1]:
+            node = node.setdefault(part, {})
+        node[k[-1]] = v
+    return out
+
+
 def to_host(*tensors) -> list:
     """The tensors as numpy arrays, through one device-to-host copy."""
     flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
@@ -285,14 +558,6 @@ def load_default_params(cfg: ICLConfig):
     return resolve_asset_params(
         lambda p: _load_params_file(cfg, p), "MAD_ICL_ASSET",
         default_asset_path(), cfg == ICLConfig(), f"ICLConfig {cfg}")
-
-
-def no_asset_error(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"no meta-trained weights apply to {cfg}, and meta-training "
-        "(pretrain_icl) is not ported to this package: pass params= (a weight "
-        "tree such as tabular.flax_msgpack.read_state(path)) or use the default "
-        "config, whose bundled asset applies")
 
 
 def asset_key(est, asset: str):
@@ -550,9 +815,11 @@ class ICLClassifier(FeaturePreprocessMixin, ClassifierMixin, BaseEstimator):
     class -> label-embedding assignment; `predict_proba` averages them.
 
     `device` ("cuda" by default, raising without a card; "cpu" on request)
-    is where the forward runs; the permuted context views stay there
-    between calls. Weights are shared process-wide: the bundled asset's
-    network is built once per (config, seed, pretrain_steps, asset, device).
+    is where the forward runs, and where a network is meta-trained when no
+    asset applies; the permuted context views stay there between calls.
+    Weights are shared process-wide: the bundled asset's (or the
+    meta-trained) network is built once per (config, seed,
+    pretrain_steps, asset, device).
     """
 
     _param_cache: dict = {}
@@ -587,14 +854,17 @@ class ICLClassifier(FeaturePreprocessMixin, ClassifierMixin, BaseEstimator):
         return asset_key(self, default_asset_path())
 
     def _ensure_params(self):
-        """The weight tree: `params`, or the bundled asset's (cached)."""
+        """The weight tree: `params`, else the bundled asset's, else one
+        meta-trained here on the estimator's device (`pretrain_icl` with
+        `pretrain_steps` and `seed`); cached process-wide by the asset key."""
         if self.params is not None:
             return self.params
         key = self._asset_key()
         if key not in ICLClassifier._param_cache:
             bundled = load_default_params(self._cfg)
             if bundled is None:
-                raise no_asset_error(self._cfg)
+                bundled, _ = pretrain_icl(self._cfg, steps=self.pretrain_steps,
+                                          seed=self.seed, device=self.device)
             ICLClassifier._param_cache[key] = bundled
         return ICLClassifier._param_cache[key]
 

@@ -16,8 +16,7 @@ import torch
 
 from ..core.device import resolve_device
 from .estimator import BaseEstimator, RegressorMixin
-from .icl import (FeaturePreprocessMixin, _zscore_by_ctx, asset_key, cached_network,
-                  no_asset_error, to_host)
+from .icl import FeaturePreprocessMixin, _zscore_by_ctx, asset_key, cached_network, to_host
 
 
 class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
@@ -26,7 +25,8 @@ class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
     `preprocess="auto"` (default) picks the feature transform by holdout
     R², with the identity kept unless a transform beats it by 0.02;
     `n_estimators` feature-permutation views are averaged; `device` as
-    ICLClassifier's."""
+    ICLClassifier's (where no asset applies, the network is meta-trained
+    there)."""
 
     _param_cache: dict = {}
     _model_cache: dict = {}
@@ -61,7 +61,9 @@ class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
         return asset_key(self, default_reg_asset_path())
 
     def _ensure_params(self):
-        from .icl_regression import load_default_reg_params
+        """`params`, else the bundled asset's, else a network meta-trained
+        here on the estimator's device (`pretrain_icl_regression`)."""
+        from .icl_regression import load_default_reg_params, pretrain_icl_regression
 
         if self.params is not None:
             return self.params
@@ -69,7 +71,9 @@ class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
         if key not in ICLRegressor._param_cache:
             bundled = load_default_reg_params(self._cfg)
             if bundled is None:
-                raise no_asset_error(self._cfg)
+                bundled, _ = pretrain_icl_regression(
+                    self._cfg, steps=self.pretrain_steps, seed=self.seed,
+                    device=self.device)
             ICLRegressor._param_cache[key] = bundled
         return ICLRegressor._param_cache[key]
 

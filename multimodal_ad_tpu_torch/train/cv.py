@@ -79,13 +79,18 @@ def _make_model(cfg: Config, model_factory, seed: int):
 
 
 def _device_batches(loader, device, normalizer: str, depth: int):
-    """Streamed host batches, uploaded ahead and normalized on the device;
-    a batch that carries augmentation plans is augmented there next."""
+    """Streamed host batches, uploaded ahead and normalized on the device,
+    each modality ('image', and 'pet' where the batch has one) on its own;
+    a batch that carries augmentation plans has each row's plan applied to
+    every modality next."""
     normalize = NORMALIZERS[normalizer]
     for batch in device_prefetch(iter(loader), device, depth=depth):
-        batch["image"] = normalize(batch["image"])
-        if "plan" in batch:
-            batch["image"] = apply_plans(batch["image"], batch.pop("plan"))
+        plans = batch.pop("plan", None)
+        for key in ("image", "pet"):
+            if key in batch:
+                batch[key] = normalize(batch[key])
+                if plans is not None:
+                    batch[key] = apply_plans(batch[key], plans)
         yield batch
 
 

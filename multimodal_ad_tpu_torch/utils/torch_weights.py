@@ -25,7 +25,12 @@
   [skip, x] in both packages, so their convs map as they are.
 - `icl_state_dict_from_flax` and `reg_icl_state_dict_from_flax` turn the
   in-context networks' flax params (the bundled msgpack assets) into the
-  tabular networks' float32 state_dicts, validating every leaf's shape.
+  tabular networks' float32 state_dicts, validating every leaf's shape;
+  `icl_flax_from_state_dict` and `reg_icl_flax_from_state_dict` are their
+  inverses (meta-trained weights written back in flax's layout).
+- `multimodal_state_dict_from_flax` and `daft_state_dict_from_flax` turn
+  the fusion models' variables (MultimodalClassifier, DAFTResNet) into
+  state_dicts, the BatchNorms' running statistics included.
 """
 
 from __future__ import annotations
@@ -394,6 +399,110 @@ def mshyper_state_dict_from_flax(variables, n_scales: int = 2, use_attention: bo
     return _state_dict_from_rows(variables, mshyper_name_map(n_scales, use_attention))
 
 
+def _small_cnn_rows(tname: str, fname: str) -> list:
+    rows = []
+    for i in range(7):
+        t, f = f"{tname}.blocks.{i}", (fname, f"ConvBNAct_{i}")
+        rows.append(_kernel_row(f"{t}.conv", f + ("Conv_0",)))
+        rows.append((f"{t}.conv.bias", "params", f + ("Conv_0", "bias"), None))
+        rows += _bn_rows(f"{t}.bn", f + ("BatchNorm_0",))
+    return rows
+
+
+def _ln_rows(tname: str, fpath: tuple) -> list:
+    return [(f"{tname}.weight", "params", fpath + ("scale",), None),
+            (f"{tname}.bias", "params", fpath + ("bias",), None)]
+
+
+def _transformer_rows(tname: str, fpath: tuple, depth: int) -> list:
+    """A flax Transformer of `depth` layers: LayerNorm_{2i}, CrossAttention_i,
+    LayerNorm_{2i+1}, FeedForward_i, the final LayerNorm_{2 depth}."""
+    rows = []
+    for i in range(depth):
+        t = f"{tname}.layers.{i}"
+        att = fpath + (f"CrossAttention_{i}",)
+        rows += _ln_rows(f"{t}.norm1", fpath + (f"LayerNorm_{2 * i}",))
+        rows += [(f"{t}.attn.to_q.weight", "params", att + ("to_q", "kernel"), np.transpose),
+                 (f"{t}.attn.to_kv.weight", "params", att + ("to_kv", "kernel"), np.transpose)]
+        rows += _dense_rows(f"{t}.attn.to_out", att + ("to_out",))
+        rows += _ln_rows(f"{t}.norm2", fpath + (f"LayerNorm_{2 * i + 1}",))
+        ff = fpath + (f"FeedForward_{i}",)
+        rows += _dense_rows(f"{t}.ff.fc1", ff + ("Dense_0",))
+        rows += _dense_rows(f"{t}.ff.fc2", ff + ("Dense_1",))
+    return rows + _ln_rows(f"{tname}.norm", fpath + (f"LayerNorm_{2 * depth}",))
+
+
+def multimodal_name_map(use_pet: bool = False, use_table: bool = False, depth: int = 2) -> list:
+    """Rows of `models/transformer.py::MultimodalClassifier` against the flax
+    MultimodalClassifier: SmallCNN3D_0 (the MRI's) and pet_cnn, each
+    ConvBNAct_i's Conv_0 (with bias) and BatchNorm_0; table_proj; the fusion
+    (CrossTransformerModAvg_0's mri_enc{i} / pet_enc{i} Transformers of one
+    layer with PET, else Transformer_0); head."""
+    rows = _small_cnn_rows("mri_cnn", "SmallCNN3D_0")
+    if use_table:
+        rows += _dense_rows("table_proj", ("table_proj",))
+    if use_pet:
+        rows += _small_cnn_rows("pet_cnn", "pet_cnn")
+        for i in range(depth):
+            for enc in ("mri_enc", "pet_enc"):
+                rows += _transformer_rows(f"fusion.{enc}.{i}",
+                                          ("CrossTransformerModAvg_0", f"{enc}{i}"), 1)
+    else:
+        rows += _transformer_rows("fusion", ("Transformer_0",), depth)
+    return rows + _dense_rows("head", ("head",))
+
+
+def multimodal_state_dict_from_flax(variables, use_pet: bool = False, use_table: bool = False,
+                                    depth: int = 2) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package MultimodalClassifier variables ({'params',
+    'batch_stats'}) -> this package's MultimodalClassifier state_dict."""
+    return _state_dict_from_rows(variables, multimodal_name_map(use_pet, use_table, depth))
+
+
+def _conv_bn_rows(conv: str, bn: str, fpath: tuple) -> list:
+    """One flax ConvBN (Conv_0 without bias, BatchNorm_0) as a conv + BN pair."""
+    return [_kernel_row(conv, fpath + ("Conv_0",))] + _bn_rows(bn, fpath + ("BatchNorm_0",))
+
+
+def _basic_block_rows(tname: str, fpath: tuple, shortcut: bool) -> list:
+    rows = (_conv_bn_rows(f"{tname}.conv1", f"{tname}.bn1", fpath + ("ConvBN_0",))
+            + _conv_bn_rows(f"{tname}.conv2", f"{tname}.bn2", fpath + ("ConvBN_1",)))
+    if shortcut:
+        rows += _conv_bn_rows(f"{tname}.downsample.0", f"{tname}.downsample.1",
+                              fpath + ("ConvBN_2",))
+    return rows
+
+
+def daft_name_map(layers=(1, 1, 1, 1)) -> list:
+    """Rows of `models/daft.py::DAFTResNet` against the flax DAFTResNet: the
+    stem Conv_0 / BatchNorm_0; BasicBlock_k numbered across the model
+    (stages 1-3, then the last stage's blocks after the DAFT block);
+    DAFTBlock_0 with its aux_hidden / aux_out; the classifier Dense_0."""
+    rows = [_kernel_row("conv1", ("Conv_0",))] + _bn_rows("bn1", ("BatchNorm_0",))
+    k, inplanes = 0, 64
+    for si, (planes, stride) in enumerate(((64, 1), (128, 2), (256, 1))):
+        for bi in range(layers[si]):
+            first = bi == 0 and (stride != 1 or inplanes != planes)
+            rows += _basic_block_rows(f"layer{si + 1}.{bi}", (f"BasicBlock_{k}",), first)
+            k += 1
+        inplanes = planes
+    d = ("DAFTBlock_0",)
+    rows += _basic_block_rows("daft", d, True)
+    rows += _dense_rows("daft.aux_hidden", d + ("aux_hidden",))
+    rows += _dense_rows("daft.aux_out", d + ("aux_out",))
+    for bi in range(layers[3] - 1):
+        rows += _basic_block_rows(f"layer4.{bi}", (f"BasicBlock_{k}",), False)
+        k += 1
+    return rows + _dense_rows("fc", ("Dense_0",))
+
+
+def daft_state_dict_from_flax(variables, layers=(1, 1, 1, 1)
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """TPU-package DAFTResNet variables ({'params', 'batch_stats'}) -> this
+    package's DAFTResNet state_dict."""
+    return _state_dict_from_rows(variables, daft_name_map(layers))
+
+
 def _icl_trunk_rows(cfg) -> list:
     """(torch name, flax path, flax shape, to-torch transform) rows of the
     in-context networks' shared trunk: the blocks and the final LayerNorm.
@@ -502,3 +611,31 @@ def icl_state_dict_from_flax(variables, cfg) -> "OrderedDict[str, torch.Tensor]"
 def reg_icl_state_dict_from_flax(variables, cfg) -> "OrderedDict[str, torch.Tensor]":
     """As `icl_state_dict_from_flax`, for the regression network."""
     return _state_dict_from_flax_rows(variables, reg_icl_name_map(cfg))
+
+
+def _flax_tree_from_state_dict(state_dict, rows) -> dict:
+    """The inverse of `_state_dict_from_flax_rows`: float32 numpy leaves at
+    the rows' flax paths. A leaf the row transforms (a transposed kernel,
+    the attention's split heads) comes back through its transpose and the
+    flax shape; the rest are reshaped."""
+    tree: dict = {}
+    for tname, path, shape, transform in rows:
+        w = state_dict[tname].detach().to("cpu", torch.float32).numpy()
+        if transform is not None and w.ndim == 2:
+            w = w.T
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(w.reshape(shape))
+    return tree
+
+
+def icl_flax_from_state_dict(state_dict, cfg) -> dict:
+    """This package's ICLTransformer state_dict -> the TPU package's flax
+    params ({'params': ...}, float32 numpy leaves) for `cfg`."""
+    return _flax_tree_from_state_dict(state_dict, icl_name_map(cfg))
+
+
+def reg_icl_flax_from_state_dict(state_dict, cfg) -> dict:
+    """As `icl_flax_from_state_dict`, for the regression network."""
+    return _flax_tree_from_state_dict(state_dict, reg_icl_name_map(cfg))

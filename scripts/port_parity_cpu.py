@@ -11,7 +11,15 @@ runs the int8 serving slice's comparisons alone; `--only densenet`,
 trainer's BN statistics), of the encoder features with the seg head and
 the stage taps, and of MSHyper; `--only tabular` those of the tabular
 in-context slice (the msgpack reader, the loaders, the sklearn
-replacements, the networks, the classifier, regressor and embedder).
+replacements, the networks, the classifier, regressor and embedder);
+`--only pretrain` those of ICL meta-training (the host prior, 3 steps of
+`pretrain_icl` with and without the auxiliary losses, a regression step,
+the msgpack writer, and the torch device prior's moments beside the JAX
+package's `sample_tasks_device` and the host prior over 256 tasks, whose
+JAX compile takes about a minute, and the TINY estimators meta-trained
+where no asset applies); `--only fusion` those of the fusion models
+(MultimodalClassifier in its three modality sets and DAFTResNet, eval and
+train mode at 16^3 and 35x50x33, one train step of each arch).
 """
 
 from __future__ import annotations
@@ -83,7 +91,8 @@ def report(name, a, b):
 
 def main():
     only = {"int8": int8_parity, "densenet": densenet_parity, "encoder": encoder_parity,
-            "hypergraph": hypergraph_parity, "tabular": tabular_parity}
+            "hypergraph": hypergraph_parity, "tabular": tabular_parity,
+            "pretrain": pretrain_parity, "fusion": fusion_parity}
     if sys.argv[1:2] == ["--only"]:
         if len(sys.argv) != 3 or sys.argv[2] not in only:
             raise SystemExit(f"usage: port_parity_cpu.py [--only {'|'.join(only)}]")
@@ -777,6 +786,355 @@ def tabular_parity():
             b = np.loadtxt(f"{d}/j_{part}.csv", delimiter=",", skiprows=1,
                            usecols=range(1, 1777))
             report(f"tabel_encoder_multi, ensemble embedder: {part} CSV", a, b)
+
+
+
+def _tree_np(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _prior_moments(t, C):
+    """Coarse moments of a task draw: the spread of the nonzero context
+    values, the share of real feature columns, the label-0 share, the share
+    of categorical columns, the mean valid context length."""
+    x, ctx = np.asarray(t["x_ctx"]), np.asarray(t["ctx_mask"])
+    used = np.abs(x).sum(1) > 0
+    out = {"value std": float(x[np.abs(x) > 0].std()), "used features": float(used.mean()),
+           "valid context": float(ctx.sum(1).mean())}
+    if C:
+        y = np.concatenate([np.asarray(t["y_ctx"])[ctx > 0], np.asarray(t["y_qry"]).ravel()])
+        out["label-0 share"] = float((y == 0).mean())
+        out["classes a task"] = float(np.mean([len(np.unique(np.asarray(t["y_qry"])[b]))
+                                               for b in range(len(x))]))
+        out["categorical cols / used"] = float(np.asarray(t["cat_mask"]).sum() / used.sum())
+    else:
+        out["query target std"] = float(np.asarray(t["y_qry"]).std(1).mean())
+    return out
+
+
+def pretrain_parity():
+    from flax import serialization
+    import optax
+
+    from multimodal_ad_tpu.tabular import icl as jicl
+    from multimodal_ad_tpu.tabular import icl_prior as jprior
+    from multimodal_ad_tpu.tabular import icl_regression as jreg
+    from multimodal_ad_tpu_torch.tabular import icl as ticl
+    from multimodal_ad_tpu_torch.tabular import icl_prior as tprior
+    from multimodal_ad_tpu_torch.tabular import icl_regression as treg
+    from multimodal_ad_tpu_torch.tabular.flax_msgpack import to_bytes, tree_leaves
+    from multimodal_ad_tpu_torch.tabular.meta_train import MetaTrainer
+    from multimodal_ad_tpu_torch.utils.torch_weights import (
+        icl_flax_from_state_dict, icl_state_dict_from_flax, reg_icl_flax_from_state_dict,
+        reg_icl_state_dict_from_flax)
+
+    small = dict(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16)
+    jt, tt = (m.ICLConfig(max_classes=4, max_context=64, **small) for m in (jicl, ticl))
+    worst = 0.0
+    for seed in range(8):
+        for mix in (None, (0.0, 0.0, 1.0, 0.0, 0.0)):
+            a = jicl.sample_tasks(np.random.default_rng(seed), 16, jt, 48, 8, mix=mix)
+            b = ticl.sample_tasks(np.random.default_rng(seed), 16, tt, 48, 8, mix=mix)
+            worst = max(worst, max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                                   for k in a))
+    print(f"{'host prior sample_tasks, 16 draws of 16 tasks':58s} max|d| {worst:.3e}")
+    B, N, M, lr, steps = 8, 32, 8, 1e-3, 3
+    for aux_embed, aux_qc in ((0.0, 0.0), (0.5, 0.3)):
+        model = jicl.ICLTransformer(jt)
+        t0 = jicl.sample_tasks(np.random.default_rng(2), B, jt, N, M)
+        init = _tree_np(model.init(jax.random.PRNGKey(2), t0["x_ctx"], t0["y_ctx"],
+                                   t0["ctx_mask"], t0["x_qry"]))
+        rng = np.random.default_rng(2)
+        jicl.sample_tasks(rng, B, jt, N, M)
+        tasks = [jicl.sample_tasks(rng, B, jt, N, M) for _ in range(steps)]
+        jfinal, _ = jicl.pretrain_icl(jt, steps=steps, batch=B, n_ctx=N, n_qry=M, lr=lr,
+                                      seed=2, init_params=init, aux_embed=aux_embed,
+                                      aux_qc=aux_qc)
+        net = ticl.ICLTransformer(tt)
+        net.load_state_dict(icl_state_dict_from_flax(init, tt))
+        loss0 = ticl.icl_meta_loss(net, {k: torch.from_numpy(v) for k, v in tasks[0].items()},
+                                   aux_embed=aux_embed, aux_qc=aux_qc)
+        loss0.backward()
+        tg = dict(tree_leaves(icl_flax_from_state_dict(
+            {n: q.grad for n, q in net.named_parameters()}, tt)))
+        tag = f"aux_embed {aux_embed}, aux_qc {aux_qc}"
+
+        def jloss(p, task):
+            xc, xq = jicl._zscore_by_ctx(task["x_ctx"], task["x_qry"], task["ctx_mask"])
+            logits, q, c = model.apply(p, xc, task["y_ctx"], task["ctx_mask"], xq,
+                                       task["cat_mask"])
+            nll = -jnp.take_along_axis(jax.nn.log_softmax(logits), task["y_qry"][..., None],
+                                       -1).mean()
+            return nll
+        if aux_embed == 0.0:
+            jl, jg = jax.value_and_grad(jloss)(init, {k: jnp.asarray(v) for k, v in
+                                                      tasks[0].items()})
+            jg = dict(tree_leaves(_tree_np(jg)))
+            norm = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in jg.values()))
+            d = max(float(np.abs(tg[k] - jg[k]).max()) for k in jg)
+            print(f"{'pretrain first-step loss (' + tag + '), relative':58s} max|d| "
+                  f"{abs(float(loss0) - float(jl)) / abs(float(jl)):.3e}")
+            print(f"{'pretrain first-step grads / global norm (' + tag + ')':58s} max|d| "
+                  f"{d / norm:.3e}")
+        net = ticl.ICLTransformer(tt)
+        net.load_state_dict(icl_state_dict_from_flax(init, tt))
+        trainer = MetaTrainer(net, lr, steps, lambda m, t: ticl.icl_meta_loss(
+            m, t, aux_embed=aux_embed, aux_qc=aux_qc))
+        for task in tasks:
+            trainer.step({k: torch.from_numpy(v) for k, v in task.items()})
+        ours = dict(tree_leaves(icl_flax_from_state_dict(net.state_dict(), tt)))
+        theirs = dict(tree_leaves(_tree_np(jfinal)))
+        d = np.concatenate([np.abs(ours[k] - theirs[k]).ravel() for k in theirs])
+        print(f"{'pretrain 3-step params (' + tag + ')':58s} max|d| {d.max():.3e} "
+              f"(median {np.median(d):.3e}, share <= 1e-6 {np.mean(d <= 1e-6):.4f})")
+    # regression meta-step
+    jr, tr = jreg.RegICLConfig(max_context=64, **small), treg.RegICLConfig(max_context=64, **small)
+    rng = np.random.default_rng(8)
+    task = {"x_ctx": rng.normal(size=(4, 24, 16)).astype(np.float32),
+            "y_ctx": rng.normal(size=(4, 24)).astype(np.float32) * 3 + 1,
+            "ctx_mask": np.ones((4, 24), np.float32),
+            "x_qry": rng.normal(size=(4, 6, 16)).astype(np.float32),
+            "y_qry": rng.normal(size=(4, 6)).astype(np.float32) * 3 + 1}
+    rm = jreg.RegICLTransformer(jr)
+    tpl = jreg.sample_template_task(jr)
+    rp = _tree_np(rm.init(jax.random.PRNGKey(0), tpl["x_ctx"], tpl["y_ctx"], tpl["ctx_mask"],
+                          tpl["x_qry"]))
+    centers = jnp.asarray(jreg.bin_centers(jr))
+
+    def rloss(p, t):
+        xc, xq = jicl._zscore_by_ctx(t["x_ctx"], t["x_qry"], t["ctx_mask"])
+        zc, zq = jreg._zscore_y_by_ctx(t["y_ctx"], t["ctx_mask"], t["y_qry"])
+        lg, _, _ = rm.apply(p, xc, zc, t["ctx_mask"], xq)
+        return -(jreg.soft_two_hot(zq, centers) * jax.nn.log_softmax(lg)).sum(-1).mean()
+    jl, jg = jax.value_and_grad(rloss)(rp, {k: jnp.asarray(v) for k, v in task.items()})
+    rnet = treg.RegICLTransformer(tr)
+    rnet.load_state_dict(reg_icl_state_dict_from_flax(rp, tr))
+    tl = treg.reg_meta_loss(rnet, {k: torch.from_numpy(v) for k, v in task.items()},
+                            torch.from_numpy(treg.bin_centers(tr)))
+    tl.backward()
+    tg = dict(tree_leaves(reg_icl_flax_from_state_dict(
+        {n: q.grad for n, q in rnet.named_parameters()}, tr)))
+    jg = dict(tree_leaves(_tree_np(jg)))
+    norm = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in jg.values()))
+    print(f"{'regression meta-step loss, relative':58s} max|d| "
+          f"{abs(float(tl) - float(jl)) / abs(float(jl)):.3e}")
+    print(f"{'regression meta-step grads / global norm':58s} max|d| "
+          f"{max(float(np.abs(tg[k] - jg[k]).max()) for k in jg) / norm:.3e}")
+    tree = ticl.init_icl_params(ticl.ICLConfig(), seed=0)
+    for dt in (np.float32, np.float16):
+        t16 = jax.tree_util.tree_map(lambda a: np.asarray(a, dt), tree)
+        same = to_bytes(t16) == serialization.to_bytes(t16)
+        print(f"{'msgpack writer vs flax.serialization.to_bytes ' + np.dtype(dt).name:58s} "
+              f"bytes equal: {same}")
+    # the device prior's coarse moments: torch (on the CPU), JAX's device
+    # prior and the host prior, 256 tasks each at TINY
+    n_tasks = 256
+    td = tprior.sample_tasks_device(torch.Generator().manual_seed(0), n_tasks, tt, 48, 8)
+    jd = jprior.sample_tasks_device(jax.random.PRNGKey(0), n_tasks, jt, 48, 8)
+    th = ticl.sample_tasks(np.random.default_rng(0), n_tasks, tt, 48, 8)
+    rows = {name: _prior_moments({k: np.asarray(v) for k, v in t.items()}, 4)
+            for name, t in (("torch device", td), ("JAX device", jd), ("host", th))}
+    for key in rows["host"]:
+        print(f"{'prior ' + key + ' (torch device / JAX device / host)':58s} "
+              + " / ".join(f"{rows[n][key]:.4f}" for n in rows))
+    rtd = tprior.sample_reg_tasks_device(torch.Generator().manual_seed(0), n_tasks, tr, 48, 8)
+    rjd = jprior.sample_reg_tasks_device(jax.random.PRNGKey(0), n_tasks, jr, 48, 8)
+    rows = {name: _prior_moments({k: np.asarray(v) for k, v in t.items()}, 0)
+            for name, t in (("torch device", rtd), ("JAX device", rjd))}
+    for key in rows["JAX device"]:
+        print(f"{'reg prior ' + key + ' (torch device / JAX device)':58s} "
+              + " / ".join(f"{rows[n][key]:.4f}" for n in rows))
+    _estimators_without_asset()
+
+
+def _estimators_without_asset():
+    """The estimators with no asset and no params meta-train: the TINY
+    classifier (300 host-prior steps) and regressor (300 device-prior
+    steps) on chip_smoke.py phase 16 (d)'s table, JAX beside the port."""
+    from multimodal_ad_tpu.tabular import icl as jicl
+    from multimodal_ad_tpu.tabular import icl_regression as jreg
+    from multimodal_ad_tpu.tabular import regression as jregr
+    from multimodal_ad_tpu_torch.tabular import icl as ticl
+    from multimodal_ad_tpu_torch.tabular import icl_regression as treg
+    from multimodal_ad_tpu_torch.tabular import regression as tregr
+
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 2, 90)
+    X = rng.normal(size=(90, 6)).astype(np.float32) + 2.5 * y[:, None]
+    target = X[:, 0] * 2.0 - X[:, 1]
+    kw = dict(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16, max_context=64)
+    acc = [float((c.fit(X[:60], y[:60]).predict(X[60:]) == y[60:]).mean()) for c in (
+        jicl.ICLClassifier(cfg=jicl.ICLConfig(max_classes=4, **kw)),
+        ticl.ICLClassifier(cfg=ticl.ICLConfig(max_classes=4, **kw), device="cpu"))]
+    r2 = []
+    for r in (jregr.ICLRegressor(cfg=jreg.RegICLConfig(**kw)),
+              tregr.ICLRegressor(cfg=treg.RegICLConfig(**kw), device="cpu")):
+        pred = np.asarray(r.fit(X[:60], target[:60]).predict(X[60:]))
+        r2.append(1 - float(np.mean((pred - target[60:]) ** 2) / np.var(target[60:])))
+    print(f"{'ICLClassifier(cfg=TINY), no asset: accuracy (JAX / port)':58s} "
+          f"{acc[0]:.3f} / {acc[1]:.3f}")
+    print(f"{'ICLRegressor(cfg=<TINY RegICLConfig>), no asset: R^2':58s} "
+          f"{r2[0]:.4f} / {r2[1]:.4f}")
+
+
+def fusion_parity():
+    from multimodal_ad_tpu.models.daft import DAFTResNet as JDAFT
+    from multimodal_ad_tpu.models.transformer import MultimodalClassifier as JMC
+    from multimodal_ad_tpu_torch.models.daft import DAFTResNet
+    from multimodal_ad_tpu_torch.models.transformer import MultimodalClassifier
+    from multimodal_ad_tpu_torch.utils.torch_weights import (daft_state_dict_from_flax,
+                                                             multimodal_state_dict_from_flax)
+
+    rng = np.random.default_rng(1)
+    small = dict(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
+    tab = rng.normal(size=(4, 5)).astype(np.float32)
+
+    def rand_vars(model, *args, **kw):
+        shapes = jax.eval_shape(lambda k: model.init({"params": k}, *args, **kw),
+                                jax.random.PRNGKey(0))
+
+        def leaf(path, s):
+            name, n = path[-1].key, rng.normal(size=s.shape)
+            if name == "kernel":
+                n = n / np.sqrt(np.prod(s.shape[:-1]))
+            elif name == "scale":
+                n = 1 + 0.1 * n
+            elif name == "var":
+                n = 0.5 + 3 * rng.random(s.shape)
+            else:
+                n = 0.1 * n
+            return n.astype(np.float32)
+        return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+    # 16^3 gives one token a modality; 35x50x33 gives 2x3x2 (the pooling floors)
+    for shape in ((16, 16, 16), (35, 50, 33)):
+        img = rng.normal(size=(4, *shape, 1)).astype(np.float32) * 2 + 1
+        pet = rng.normal(size=(4, *shape, 1)).astype(np.float32)
+        cases = []
+        for use_pet, use_table in ((False, False), (False, True), (True, True)):
+            jm = JMC(use_pet=use_pet, use_table=use_table, dropout=0.0, dtype=jnp.float32,
+                     **small)
+            kw = {"pet": pet if use_pet else None, "table": tab if use_table else None}
+            v = rand_vars(jm, img, **kw)
+            tm = MultimodalClassifier(use_pet=use_pet, use_table=use_table, table_dim=5,
+                                      dropout=0.0, compute_dtype=torch.float32, **small)
+            tm.load_state_dict(multimodal_state_dict_from_flax(v, use_pet, use_table, 2))
+            tkw = {k: None if a is None else torch.from_numpy(a) for k, a in kw.items()}
+            cases.append((f"MultimodalClassifier pet={use_pet} table={use_table}", jm, v, tm,
+                          (img,), kw, (torch.from_numpy(img),), tkw))
+        jd = JDAFT(dropout_rate=0.0, dtype=jnp.float32)
+        v = rand_vars(jd, img, tab)
+        td = DAFTResNet(table_dim=5, dropout_rate=0.0, compute_dtype=torch.float32)
+        td.load_state_dict(daft_state_dict_from_flax(v))
+        cases.append(("DAFTResNet", jd, v, td, (img, tab), {},
+                      (torch.from_numpy(img), torch.from_numpy(tab)), {}))
+        _fusion_forwards(cases, "x".join(map(str, shape)))
+    _fusion_steps(cases, pet, img, tab)
+
+
+def _fusion_forwards(cases, size):
+    for name, jm, v, tm, ja, jk, ta, tk in cases:
+        for train in (False, True):
+            ref = jm.apply(v, *ja, train=train, mutable=["batch_stats"] if train else False, **jk)
+            ref = np.asarray(ref[0] if train else ref)
+            tm.train(train)
+            with torch.no_grad():
+                out = tm(*ta, **tk).numpy()
+            label = f"{name} {size}{' train' if train else ' eval'} / logits spread"
+            print(f"{label:58s} max|d| {np.abs(out - ref).max() / (ref.max() - ref.min()):.3e}")
+
+
+def _fusion_steps(cases, pet, img, tab):
+    """One train step of each arch (at the last shape): u, the clipped
+    gradient plus wd p (the first Adam moment / (1 - b1)), of both packages
+    and of the JAX model in float64, and the parameters whose |u| is above
+    ten times u's disagreement (and eps) apart from the rest, as the test
+    holds them."""
+    from multimodal_ad_tpu.train import fusion as jfusion
+    from multimodal_ad_tpu.train import loop as jloop
+    from multimodal_ad_tpu_torch.train import fusion as tfusion
+    from multimodal_ad_tpu_torch.train.loop import create_train_state, make_epoch_schedule
+    from multimodal_ad_tpu_torch.utils.torch_weights import (daft_state_dict_from_flax,
+                                                             multimodal_state_dict_from_flax)
+    import optax
+
+    batch = {"image": img, "pet": pet, "table": tab, "label": np.array([0, 1, 1, 0], np.int32),
+             "mask": np.array([1, 1, 1, 0], np.float32)}
+    cw = np.array([0.5, 0.25], np.float32)
+    for arch, (name, jm, v, tm, *_rest) in (("cross_transformer", cases[2]), ("daft", cases[3])):
+        sched = jloop.make_epoch_schedule(1e-3, 10)
+        tx = jloop.make_optimizer(sched, 1e-4, 1.0, "adam")
+        st = jloop.TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                              opt_state=tx.init(v["params"]), epoch=jnp.zeros((), jnp.int32),
+                              tx=tx, apply_fn=jm.apply)
+        js, jl, jp = jfusion.make_fusion_steps(jm, arch)[0](
+            st, {k: jnp.asarray(a) for k, a in batch.items()}, jnp.asarray(cw),
+            jax.random.PRNGKey(0))
+        tstate = create_train_state(tm, make_epoch_schedule(1e-3, 10), 1e-4, 1.0, "adam")
+        tl, tp = tfusion.make_fusion_steps(arch, arch != "daft", True)[0](
+            tstate, {k: torch.from_numpy(a) for k, a in batch.items()}, torch.from_numpy(cw))
+        conv = (daft_state_dict_from_flax if arch == "daft" else
+                lambda x: multimodal_state_dict_from_flax(x, True, True, 2))
+        stats = jax.device_get(js.batch_stats)
+        after = conv({"params": jax.device_get(js.params), "batch_stats": stats})
+        adam = [s for s in jax.tree_util.tree_leaves(
+            js.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)][0]
+        u = conv({"params": jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1, adam.mu),
+                  "batch_stats": stats})
+        keys = dict(tm.named_parameters())
+        u_t = {k: tstate.optimizer.state[q]["exp_avg"] / 0.1 for k, q in keys.items()}
+        u_norm = float(torch.sqrt(sum((u[k].double() ** 2).sum() for k in keys)))
+        du = max(float((u_t[k] - u[k]).abs().max()) for k in keys)
+        sd = tm.state_dict()
+        big = {k: u[k].abs() > 10 * torch.clamp((u_t[k] - u[k]).abs(), min=1e-8) for k in keys}
+        d = {k: (sd[k] - after[k]).abs() for k in keys}
+        dp_big = max(float(d[k][big[k]].max()) for k in keys if big[k].any())
+        dp = max(float(d[k].max()) for k in keys)
+        n_small = sum(int((~big[k]).sum()) for k in keys)
+        n_all = sum(d[k].numel() for k in keys)
+        print(f"{arch + ' train step loss, relative':58s} max|d| "
+              f"{abs(float(tl) - float(jl)) / abs(float(jl)):.3e}")
+        print(f"{arch + ' train step probabilities':58s} max|d| "
+              f"{float(np.abs(tp.numpy() - np.asarray(jp)).max()):.3e}")
+        print(f"{arch + ' train step u (clipped grad + wd p) / its norm':58s} max|d| "
+              f"{du / u_norm:.3e}")
+        label = f"{arch} train step params, |u| > 10 max(d_u, eps) (bound lr/50)"
+        print(f"{label:58s} max|d| {dp_big:.3e}")
+        label = f"{arch} train step params, the rest (bound 2 lr = {2 * sched(0):.0e})"
+        print(f"{label:58s} max|d| {dp:.3e}; {n_small} of {n_all} elements")
+        u64 = conv({"params": _u_float64(jm, v, batch, cw, arch), "batch_stats": stats})
+        for who, uu in (("port", u_t), ("JAX", u)):
+            err = max(float((uu[k].double() - u64[k].double()).abs().max()) for k in keys)
+            print(f"{arch + ' train step u, ' + who + ' vs JAX float64 / its norm':58s} max|d| "
+                  f"{err / u_norm:.3e}")
+
+
+def _u_float64(jm, v, batch, cw, arch):
+    """The clipped gradient plus wd p of the fusion step's loss, from the
+    JAX model in float64 on the same weights and batch (the reference both
+    packages' float32 steps are measured against)."""
+    from multimodal_ad_tpu.train import loop as jloop
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        m64 = jm.clone(dtype=jnp.float64, param_dtype=jnp.float64)
+        f64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v)
+        b = {k: jnp.asarray(a, jnp.float64) if a.dtype == np.float32 else jnp.asarray(a)
+             for k, a in batch.items()}
+        kw = {"table": b["table"]} if arch == "daft" else {"pet": b["pet"], "table": b["table"]}
+
+        def loss(p):
+            logits, _ = m64.apply({"params": p, "batch_stats": f64["batch_stats"]}, b["image"],
+                                  train=True, mutable=["batch_stats"], **kw)
+            return jloop.weighted_ce(logits, b["label"], jnp.asarray(cw, jnp.float64), b["mask"])
+        g = jax.grad(loss)(f64["params"])
+        norm = float(jnp.sqrt(sum(jnp.sum(x ** 2) for x in jax.tree_util.tree_leaves(g))))
+        scale = min(1.0, 1.0 / norm)
+        return jax.tree_util.tree_map(lambda gg, pp: np.asarray(gg * scale + 1e-4 * pp),
+                                      g, f64["params"])
+    finally:
+        jax.config.update("jax_enable_x64", False)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ taps and at odd channel counts), as do three fp32 train steps of the
 ResNet and of the U-Net classifier, the training epoch iterator, the
 host-planned augmentation, the int8 ensemble and depth-34 and depth-50
 int8 folds, and the DenseNet train steps, encoder features, the seg head,
-MSHyper and the native NIfTI decoder on the card's machine. This file
-imports no JAX, so it also runs on the card's machine."""
+MSHyper, the native NIfTI decoder, the ICL meta-training (the device prior
+and a few steps) and the fusion models' forwards and train steps on the
+card's machine. This file imports no JAX, so it also runs on the card's
+machine."""
 
 import os
 import pkgutil
@@ -1229,3 +1231,185 @@ def test_icl_classifier_fit_on_the_card_matches_the_host(cuda):
     for kind in ("mean", "median"):
         d = np.abs(reg.predict(X[120:], kind) - href.predict(X[120:], kind)).max()
         assert float(d) <= 1e-4 * spread
+
+
+FUSION_BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "multimodal_ad_tpu", "sklearn",
+                  "pandas", "matplotlib", "tensorboard")
+
+
+def test_meta_training_and_fusion_run_without_sklearn_pandas_matplotlib_or_tensorboard(
+        tmp_path):
+    """pretrain_icl (host and device prior, both auxiliary losses),
+    cli.pretrain_icl (classifier and regressor), train_fusion_cv and
+    cli.train_fusion (MRI + PET + table, the default ICLClassifier embedder)
+    run end to end on the CPU with the card machine's absences."""
+    code = (
+        "import sys\n"
+        f"for name in {FUSION_BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from multimodal_ad_tpu_torch.cli import pretrain_icl, train_fusion\n"
+        "from multimodal_ad_tpu_torch.core.config import Config\n"
+        "from multimodal_ad_tpu_torch.data.adni import ADNIManifest\n"
+        "from multimodal_ad_tpu_torch.data.synthetic import make_adni_dir\n"
+        "from multimodal_ad_tpu_torch.data.tabular import write_table\n"
+        "from multimodal_ad_tpu_torch.tabular.icl import ICLConfig, pretrain_icl as pt\n"
+        "from multimodal_ad_tpu_torch.train.fusion import train_fusion_cv\n"
+        f"root = {str(tmp_path)!r}\n"
+        "cfg = ICLConfig(d_model=16, n_heads=2, n_layers=1, d_ff=32, max_features=8,"
+        " max_classes=3)\n"
+        "for prior in (False, True):\n"
+        "    pt(cfg, steps=2, batch=4, n_ctx=20, n_qry=4, device_prior=prior, chunk=1,"
+        " aux_embed=0.5, aux_qc=0.5, device='cpu')\n"
+        "small = ['--steps', '1', '--batch', '2', '--n-ctx', '20', '--n-qry', '4',"
+        " '--d-model', '16', '--device', 'cpu']\n"
+        "pretrain_icl.main(small + ['--out', root + '/c.msgpack'])\n"
+        "pretrain_icl.main(small + ['--regression', '--out', root + '/r.msgpack'])\n"
+        "csv_path, mri, pet = make_adni_dir(root, n_per_class=5, shape=(16, 16, 16), pet=True)\n"
+        "recs = ADNIManifest(csv_path, mri, pet_dir=pet, verbose=False).data_dict\n"
+        "y = np.array([r['label'] for r in recs])\n"
+        "cols = {'Subject_ID': np.array([r['Subject'] for r in recs], dtype=object),"
+        " 'Group': np.array([('AD', 'CN')[v] for v in y], dtype=object)}\n"
+        "cols.update({f'm{j}': np.zeros(len(y)) for j in range(12)})\n"
+        "cols.update({f'f{j}': (np.arange(len(y)) % 3 + y).astype(np.float32)"
+        " for j in range(4)})\n"
+        "table = write_table(root + '/t.csv', cols)\n"
+        "args = ['label_file=' + csv_path, 'mri_dir=' + mri, 'pet_dir=' + pet,"
+        " 'num_epochs=1', 'batch_size=4', 'n_splits=2', 'compute_dtype=float32',"
+        " 'loader_threads=2', 'checkpoint_dir=' + root + '/ckpt']\n"
+        "train_fusion.main(['--use-pet', '--use-table', '--table', table, '--dim', '16',"
+        " '--depth', '1', '--device', 'cpu'] + args)\n"
+        "c = Config(label_file=csv_path, mri_dir=mri, num_epochs=1, batch_size=4, n_splits=2,"
+        " compute_dtype='float32', loader_threads=2, checkpoint_dir=root + '/ckpt2')\n"
+        "train_fusion_cv(c, model_kw=dict(dim=16, depth=1), device='cpu', verbose=False)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    for path in ("c.msgpack", "r.msgpack", "ckpt/fusion_results.csv",
+                 "ckpt/fusion_best_fold2/model.pt", "ckpt2/fusion_results.csv"):
+        assert os.path.isfile(tmp_path / path), path
+
+
+def test_meta_training_and_fusion_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from multimodal_ad_tpu_torch.cli.pretrain_icl import main as pretrain_main
+    from multimodal_ad_tpu_torch.cli.train_fusion import main as fusion_main
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.tabular.icl import ICLConfig, pretrain_icl
+    from multimodal_ad_tpu_torch.tabular.icl_regression import pretrain_icl_regression
+    from multimodal_ad_tpu_torch.train.fusion import test_fusion_models, train_fusion_cv
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain_icl(ICLConfig(d_model=16), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain_icl_regression(steps=1)
+    for extra in ([], ["--regression"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pretrain_main(["--steps", "1", "--out", str(tmp_path / "w.msgpack")] + extra)
+    labels = str(tmp_path / "labels.csv")
+    with open(labels, "w") as f:
+        f.write("Subject_ID,Group\n" + "".join(f"S{i},{'AD' if i % 2 else 'CN'}\n"
+                                               for i in range(10)))
+    cfg = Config(label_file=labels, mri_dir=str(tmp_path),
+                 checkpoint_dir=str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_fusion_cv(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_fusion_models(cfg, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fusion_main([f"label_file={labels}", f"mri_dir={tmp_path}",
+                     f"checkpoint_dir={tmp_path / 'ckpt'}"])
+    assert not os.path.exists(tmp_path / "w.msgpack")
+    assert not os.path.exists(tmp_path / "ckpt")  # nothing ran on the host
+
+
+@pytest.mark.cuda
+def test_device_prior_and_meta_training_on_the_card(cuda):
+    """The device prior drawn on the card keeps its masking invariants and
+    finite values (the correlated family's Cholesky included), at the
+    default config's widths; a few meta-steps on each prior and of the
+    regressor give finite weights; the same host-prior steps on the card and
+    the host give losses within 1e-4 relative."""
+    from multimodal_ad_tpu_torch.tabular import icl_prior
+    from multimodal_ad_tpu_torch.tabular.icl import (ICLConfig, ICLTransformer, icl_meta_loss,
+                                                     init_icl_params, pretrain_icl, sample_tasks)
+    from multimodal_ad_tpu_torch.tabular.icl_regression import (RegICLConfig,
+                                                                pretrain_icl_regression)
+    from multimodal_ad_tpu_torch.tabular.meta_train import MetaTrainer
+    from multimodal_ad_tpu_torch.utils.torch_weights import icl_state_dict_from_flax
+
+    cfg = ICLConfig()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):
+        t = icl_prior.sample_tasks_device(gen, 32, cfg, 128, 32)
+        assert all(bool(torch.isfinite(v.float()).all()) for v in t.values())
+        lens = t["ctx_mask"].sum(1).long()
+        assert int(lens.min()) >= 16
+        assert int(t["y_ctx"].max()) < cfg.max_classes
+        pos = torch.arange(128, device=cuda)[None] >= lens[:, None]
+        assert not bool(t["x_ctx"][pos].any()) and not bool(t["y_ctx"][pos].any())
+    r = icl_prior.sample_reg_tasks_device(gen, 32, RegICLConfig(), 128, 32)
+    assert all(bool(torch.isfinite(v).all()) for v in r.values())
+    small = ICLConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16,
+                      max_classes=4)
+    for prior in (False, True):
+        p, _ = pretrain_icl(small, steps=4, batch=8, n_ctx=32, n_qry=8, device_prior=prior,
+                            chunk=2, aux_embed=0.5, aux_qc=0.5, device="cuda")
+        assert all(np.isfinite(v).all() for v in p["params"]["cls_head"].values())
+    p, _ = pretrain_icl_regression(RegICLConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                                                max_features=16), steps=3, batch=8, n_ctx=32,
+                                   n_qry=8, chunk=2, device="cuda")
+    assert np.isfinite(p["params"]["reg_head"]["kernel"]).all()
+    init = init_icl_params(small, seed=1)
+    tasks = [sample_tasks(np.random.default_rng(i), 8, small, 32, 8) for i in range(3)]
+    losses = {}
+    for dev in ("cpu", cuda):
+        net = ICLTransformer(small)
+        net.load_state_dict(icl_state_dict_from_flax(init, small))
+        trainer = MetaTrainer(net.to(dev), 1e-3, 3, lambda m, t: icl_meta_loss(
+            m, t, aux_embed=0.5, aux_qc=0.5))
+        losses[str(dev)] = [float(trainer.step({k: torch.from_numpy(v).to(dev)
+                                                for k, v in t.items()})) for t in tasks]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["cross_transformer", "daft"])
+def test_fusion_models_on_the_card_match_the_host(cuda, arch):
+    """MultimodalClassifier (MRI + PET + table) and DAFTResNet in fp32 at
+    32^3: eval forwards and one train step's loss on the card within 1e-4
+    of the host's (TF32 off)."""
+    from multimodal_ad_tpu_torch.core.device import resolve_device
+    from multimodal_ad_tpu_torch.models.daft import DAFTResNet
+    from multimodal_ad_tpu_torch.models.transformer import MultimodalClassifier
+    from multimodal_ad_tpu_torch.train.fusion import make_fusion_steps
+    from multimodal_ad_tpu_torch.train.loop import create_train_state, make_epoch_schedule
+
+    resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(4, 32, 32, 32, 1)).astype(np.float32),
+             "pet": rng.normal(size=(4, 32, 32, 32, 1)).astype(np.float32),
+             "table": rng.normal(size=(4, 7)).astype(np.float32),
+             "label": np.array([0, 1, 1, 0], np.int32),
+             "mask": np.array([1, 1, 1, 0], np.float32)}
+    outs = {}
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(0)
+        if arch == "daft":
+            model = DAFTResNet(table_dim=7, dropout_rate=0.0, compute_dtype=torch.float32,
+                               generator=gen)
+        else:
+            model = MultimodalClassifier(dim=32, depth=1, use_pet=True, use_table=True,
+                                         table_dim=7, dropout=0.0,
+                                         compute_dtype=torch.float32, generator=gen)
+        model = model.to(dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step, evaluate = make_fusion_steps(arch, use_pet=arch != "daft", use_table=True)
+        state = create_train_state(model, make_epoch_schedule(1e-3, 4))
+        _, probs = evaluate(state, b)
+        loss, _ = step(state, b, torch.ones(2, device=dev))
+        outs[str(dev)] = (probs.cpu(), float(loss))
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=0, atol=1e-4)
+    assert abs(outs["cuda"][1] - outs["cpu"][1]) <= 1e-4 * abs(outs["cpu"][1])

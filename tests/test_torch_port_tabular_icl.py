@@ -7,7 +7,7 @@ with the bundled asset on small tables, one case per `preprocess`
 (`preprocess_`, the width screen and the pairs selection equal,
 `predict_proba` within 1e-5, `predict` equal, every `embedding_kind` within
 1e-4), a table wider than the screen, a context subsample, the errors, and
-the asset policy (the NotImplementedError where no asset applies)."""
+the asset policy (meta-training where no asset applies)."""
 
 import warnings
 
@@ -233,15 +233,18 @@ def test_classifier_errors_match_jax():
 
 
 def test_no_asset_raises_not_implemented(monkeypatch):
-    """Where no asset applies and no params are given the port raises; the
-    JAX package would meta-train here."""
+    """Where no asset applies and no params are given the port meta-trains a
+    network (`pretrain_icl` / `pretrain_icl_regression` with the estimator's
+    pretrain_steps and seed), as the JAX package does, instead of raising;
+    the asset policy's errors stand."""
     X, y, _ = _table(5, n=30)
     small = ticl.ICLConfig(**TINY)
-    with pytest.raises(NotImplementedError, match="meta-training"):
-        ticl.ICLClassifier(cfg=small, preprocess=None, device="cpu").fit(X[:, :12], y)
-    with pytest.raises(NotImplementedError, match="meta-training"):
-        ICLRegressor(cfg=treg.RegICLConfig(**TINY), preprocess=None,
-                     device="cpu").fit(X, y.astype(float))
+    clf = ticl.ICLClassifier(cfg=small, pretrain_steps=5, preprocess=None, n_estimators=2,
+                             device="cpu").fit(X[:, :12], y)
+    assert np.isfinite(clf.predict_proba(X[:4, :12])).all()
+    reg = ICLRegressor(cfg=treg.RegICLConfig(**TINY), pretrain_steps=5, preprocess=None,
+                       n_estimators=2, device="cpu").fit(X, y.astype(float))
+    assert np.isfinite(reg.predict(X[:4])).all()
     assert ticl.load_default_params(small) is None
     monkeypatch.setenv("MAD_ICL_ASSET", "/nonexistent/asset.msgpack")
     with pytest.raises(FileNotFoundError, match="MAD_ICL_ASSET"):

@@ -185,7 +185,25 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    sklearn's logistic regression); (d) `MultimodalClassifier` (MRI + PET + table) and
    `DAFTResNet` fp32 forwards on the card against the host on the same
    weights and inputs (1e-3 of the logits' spread);
-18. one JSON line {"kernels": [...]} and, last, the device line.
+18. the tabular meta-estimators over the classifier asset on phase 15's
+   table (464 / 116), with sklearn, pandas, matplotlib, flax and msgpack
+   blocked: (a) exact `shapley_values` of P(AD) over 12 numeric features
+   (2^12 = 4,096 coalitions, one predict_proba chunk a sample) for 4
+   samples: seconds a sample, device kernels a chunk and the card's idle
+   share (a profile), efficiency (the values sum to f(x) - f(background)
+   within 1e-5), one sample on the host CPU within 1e-4 of the values'
+   spread; a Monte-Carlo run at F = 20, 16 permutations; (b)
+   `TunedICLClassifier(n_trials=8, n_splits=3)`: wall time, fits and
+   fits/s, the trials, `best_params_`, `best_score_`, test macro AUC, one
+   CV run's idle share; at n_trials=2 on the card and on the host: the
+   same trials and seeds, the same pick, probabilities within 1e-4; (c)
+   `AutoICLClassifier(n_configs=4)` and `SeedEnsembleICL(n_members=4)`:
+   times, the greedy weights, test AUC; (d) `ManyClassClassifier` over
+   `ICLClassifier()` on a seeded 14-class table (ECOC, a (14, 4) codebook):
+   fit and predict times, accuracy, the host's codebook equal and its
+   probabilities within 1e-4; `TunedICLRegressor(n_trials=4)` on phase 15
+   (d)'s target: time and R²;
+19. one JSON line {"kernels": [...]} and, last, the device line.
 
 Every streamed path of phases 7, 9 (cli.train_unet3d), 10, 13 and 17 prints
 VolumeBatcher's decodes by reader and fails unless they are all native;
@@ -1657,6 +1675,24 @@ def make_clinical_table(path):
     return blanks / (len(numeric) * TAB_ROWS)
 
 
+def numeric_columns(X):
+    """The table's numeric feature columns that are at most half blank and
+    take more than 10 values, in order."""
+    return [j for j in range(X.shape[1]) if np.isnan(X[:, j]).mean() < 0.5
+            and len(np.unique(X[np.isfinite(X[:, j]), j])) > 10]
+
+
+def regression_target(X):
+    """(source columns, target): y = 0.8 a - 0.5 b + 0.3 a c + noise over the
+    first three numeric feature columns (their blanks at the column
+    median), which stay in X with their blanks."""
+    g = np.random.default_rng(SEED + 17)
+    source_cols = numeric_columns(X)[:3]
+    ya, yb, yc = (np.where(np.isnan(X[:, j]), np.nanmedian(X[:, j]), X[:, j])
+                  .astype(np.float64) for j in source_cols)
+    return source_cols, 0.8 * ya - 0.5 * yb + 0.3 * ya * yc + 0.2 * g.normal(size=len(X))
+
+
 def tabular_phase(torch, dev, card, work):
     """Phase 15: tabular in-context inference (the classifier, regressor and
     embedder assets at full width) on the card against the host."""
@@ -1824,14 +1860,7 @@ def tabular_phase(torch, dev, card, work):
                clf_card_vs_host=d_proba)
 
     # (d) ICLRegressor on a target drawn from the same table
-    # y = 0.8 a - 0.5 b + 0.3 a c + noise over three numeric feature columns
-    # (their blanks at the column median), which stay in X with their blanks
-    g = np.random.default_rng(SEED + 17)
-    source_cols = [j for j in range(X.shape[1]) if np.isnan(X[:, j]).mean() < 0.5
-                   and len(np.unique(X[np.isfinite(X[:, j]), j])) > 10][:3]
-    ya, yb, yc = (np.where(np.isnan(X[:, j]), np.nanmedian(X[:, j]), X[:, j])
-                  .astype(np.float64) for j in source_cols)
-    target = 0.8 * ya - 0.5 * yb + 0.3 * ya * yc + 0.2 * g.normal(size=len(X))
+    source_cols, target = regression_target(X)
     tr, te = train_test_split(np.arange(len(X)), test_size=0.2, random_state=42)
     Xr_tr, Xr_te = X[tr], X[te]
     t0 = time.perf_counter()
@@ -2342,6 +2371,262 @@ def fusion_phase(torch, dev, card, work):
         out[f"card_vs_host_{name.split()[0]}"] = (err, spread)
     out["seconds"] = time.time() - t_phase
     log(f"  phase 17 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+META_SHAP_FEATURES, META_SHAP_SAMPLES = 12, 4  # 2^12 = 4,096 coalitions: one chunk a sample
+META_MC_FEATURES, META_MC_DRAWS, META_MC_SAMPLES = 20, 16, 2
+META_TRIALS, META_SPLITS, META_HOST_TRIALS = 8, 3, 2
+META_ECOC_CLASSES, META_ECOC_ROWS, META_ECOC_FEATURES = 14, 700, 20
+META_REG_TRIALS = 4
+AD = TAB_CLASSES.index("AD")  # the class whose probability is attributed
+
+
+def _agreeing_profile(torch, fn, n, tries=5):
+    """(device ms a call, device kernels and copies a call) over `n` calls of
+    `fn()` under torch.profiler, taken from a profile whose
+    device time the one before it confirms within 10 %; after `tries`
+    profiles with no such pair the phase fails. Device time, not the kernel
+    count, is compared: on the card the count of one Shapley chunk read 142,
+    162 and 199 across runs while its device time stayed at 116-122 ms."""
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms, launches = profile_split(torch, prof, n)
+        if seen and abs(dev_ms - seen[-1]) <= 0.1 * max(dev_ms, seen[-1]):
+            return dev_ms, launches
+        seen.append(dev_ms)
+    check(False, f"profiles of the same call read {seen} ms of device time: the profiler "
+                 "lost events, so no idle share is measured")
+
+
+class _LoggedTuned:
+    """Mixin over a tuned estimator: records each CV call's (trial, seed,
+    fold scores) in `calls_` (the search's trials first, then the guard's
+    re-scores)."""
+
+    def _cv_scores(self, X, y, trial, seed):
+        scores = super()._cv_scores(X, y, trial, seed)
+        self.__dict__.setdefault("calls_", []).append((trial, seed, list(scores)))
+        return scores
+
+
+def meta_estimators_phase(torch, dev, card, work):
+    """Phase 18: the tabular meta-estimators over the classifier asset on the
+    card (Shapley values, TPE-guarded tuning, the greedy and seed ensembles,
+    ECOC, the tuned regressor), each against the host."""
+    from multimodal_ad_tpu_torch.data.tabular import load_adni_table
+    from multimodal_ad_tpu_torch.tabular import (AutoICLClassifier, ICLClassifier,
+                                                 ManyClassClassifier, SeedEnsembleICL,
+                                                 TunedICLClassifier, TunedICLRegressor)
+    from multimodal_ad_tpu_torch.tabular.estimator import train_test_split
+    from multimodal_ad_tpu_torch.tabular.icl import ICLTransformer
+    from multimodal_ad_tpu_torch.tabular.interpretability import shapley_values
+    from multimodal_ad_tpu_torch.tabular.scoring import safe_roc_auc_score, score_regression
+
+    # the card's machine has none of these; hold the path to that here too
+    for name in ("sklearn", "pandas", "matplotlib", "flax", "msgpack"):
+        sys.modules[name] = None
+    out = {}
+    t_phase = time.time()
+    log(f"== 18. tabular meta-estimators over the classifier asset (d_model 256, 6 layers, "
+        f"192 features, 10 classes, 512 context rows) on phase 15's table")
+    tab_dir = os.path.join(work, "tabular")
+    os.makedirs(tab_dir, exist_ok=True)
+    table = os.path.join(tab_dir, "ADNI_Tabel_meta.csv")
+    make_clinical_table(table)
+    X, y, _ = load_adni_table(table, label_col="Group", classes=TAB_CLASSES, start_col=14)
+    X_tr, X_te, y_tr, y_te = train_test_split(X, y, test_size=0.2, random_state=42,
+                                              stratify=y)
+    numeric = numeric_columns(X)
+
+    def filled(cols):
+        """Train and test columns with their blanks at the train median:
+        a coalition's absent features take the background mean."""
+        med = np.nanmedian(X_tr[:, cols], axis=0)
+        return [np.where(np.isnan(a[:, cols]), med, a[:, cols]).astype(np.float32)
+                for a in (X_tr, X_te)]
+
+    # (a) Shapley values: exact over 12 features, one 4,096-row chunk a sample
+    S_tr, S_te = filled(numeric[:META_SHAP_FEATURES])
+    clf = ICLClassifier().fit(S_tr, y_tr)
+    rows = S_te[:META_SHAP_SAMPLES]
+    shap = lambda est, r: shapley_values(est, r, background=S_tr, class_index=AD)  # noqa: E731
+    shap(clf, rows[:1])  # the first 4,096-query forward: allocations, cuBLAS plans
+    t0 = time.perf_counter()
+    phi = shap(clf, rows)
+    per_sample = (time.perf_counter() - t0) / len(rows)
+    gap = clf.predict_proba(rows)[:, AD] - clf.predict_proba(
+        S_tr.mean(axis=0, keepdims=True))[0, AD]
+    eff = float(np.abs(phi.sum(axis=1) - gap).max())
+    dev_ms, kernels = _agreeing_profile(torch, lambda: shap(clf, rows[:1]), 2)
+    idle = 1 - dev_ms / (per_sample * 1e3)
+    t0 = time.perf_counter()
+    host = ICLClassifier(device="cpu").fit(S_tr, y_tr)
+    hphi = shap(host, rows[:1])
+    host_s = time.perf_counter() - t0
+    spread = float(hphi.max() - hphi.min())
+    d_phi = float(np.abs(phi[:1] - hphi).max())
+    log(f"  (a) exact Shapley values of P({TAB_CLASSES[AD]}) over {META_SHAP_FEATURES} "
+        f"numeric features, {META_SHAP_SAMPLES} samples, preprocess_ {clf.preprocess_!r}: "
+        f"{per_sample:.3f} s a sample (2^{META_SHAP_FEATURES} = "
+        f"{1 << META_SHAP_FEATURES} coalitions, one predict_proba chunk of 8 views x "
+        f"{1 << META_SHAP_FEATURES} queries); {kernels:.0f} device kernels and copies a chunk, "
+        f"{dev_ms:.1f} ms of device time: the card idles {idle:.1%}")
+    log(f"  (a) efficiency: |sum phi - (f(x) - f(background))| <= {eff:.3g} (bound 1e-5); "
+        f"the host CPU on sample 0 ({host_s:.1f} s with its fit): max |d| {d_phi:.3g} "
+        f"against a spread of {spread:.4g} (bound 1e-4 of it)")
+    check(eff <= 1e-5, f"Shapley efficiency {eff}")
+    check(host.preprocess_ == clf.preprocess_, "Shapley classifier preprocess_ card != host")
+    check(d_phi <= 1e-4 * spread, f"Shapley values card vs host {d_phi}")
+    M_tr, M_te = filled(numeric[:META_MC_FEATURES])
+    mclf = ICLClassifier().fit(M_tr, y_tr)
+    t0 = time.perf_counter()
+    mphi = shapley_values(mclf, M_te[:META_MC_SAMPLES], background=M_tr, class_index=AD,
+                          n_draws=META_MC_DRAWS)
+    mc_s = time.perf_counter() - t0
+    mgap = mclf.predict_proba(M_te[:META_MC_SAMPLES])[:, AD] - mclf.predict_proba(
+        M_tr.mean(axis=0, keepdims=True))[0, AD]
+    meff = float(np.abs(mphi.sum(axis=1) - mgap).max())
+    log(f"  (a) Monte-Carlo at F = {META_MC_FEATURES}, {META_MC_DRAWS} permutations a sample "
+        f"(one call of {META_MC_FEATURES + 1} coalitions each), {META_MC_SAMPLES} samples: "
+        f"{mc_s:.2f} s; efficiency {meff:.3g} (bound 1e-5)")
+    check(meff <= 1e-5, f"Monte-Carlo Shapley efficiency {meff}")
+    out.update(shap_s_per_sample=per_sample, shap_kernels_per_chunk=kernels,
+               shap_device_ms_per_chunk=dev_ms, shap_idle=idle, shap_efficiency=eff,
+               shap_card_vs_host=d_phi, shap_spread=spread, shap_host_s=host_s,
+               shap_mc_s=mc_s, shap_mc_efficiency=meff)
+
+    # (b) TunedICLClassifier on the 464 / 116 split
+    class Tuned(_LoggedTuned, TunedICLClassifier):
+        pass
+
+    timer = _PathTimer(torch, {"fit": (ICLClassifier, "fit", False),
+                               "forward": (ICLTransformer, "forward", True)})
+    with timer:
+        t0 = time.perf_counter()
+        tuned = Tuned(n_trials=META_TRIALS, n_splits=META_SPLITS).fit(X_tr, y_tr)
+        tuned_s = time.perf_counter() - t0
+    proba = tuned.predict_proba(X_te)
+    auc = safe_roc_auc_score(y_te, proba)
+    fits = timer.calls["fit"]
+    n_cv = len(tuned.calls_)
+    trials = [c[0] for c in tuned.calls_[:META_TRIALS + 1]]
+    rescores = n_cv - (META_TRIALS + 1)
+    prof_trial = trials[1]
+    cv_ms = statistics.median(_timed_ms(lambda: tuned._cv_scores(
+        X_tr, y_tr, prof_trial, 0)) for _ in range(2))
+    cv_dev_ms, cv_kernels = _agreeing_profile(
+        torch, lambda: tuned._cv_scores(X_tr, y_tr, prof_trial, 0), 2)
+    cv_idle = 1 - cv_dev_ms / cv_ms
+    log(f"  (b) TunedICLClassifier(n_trials={META_TRIALS}, n_splits={META_SPLITS}) on "
+        f"{len(X_tr)} / {len(X_te)}: {tuned_s:.2f} s, {fits} ICLClassifier fits "
+        f"({fits / tuned_s:.1f} fits/s; the auto preprocess's holdout fits included), "
+        f"{timer.calls['forward']} forwards ({timer.seconds['forward']:.2f} s to their "
+        f"syncs), {n_cv} CV runs ({rescores} of them the guard's re-scores)")
+    for t, c in enumerate(tuned.calls_[:META_TRIALS + 1]):
+        log(f"      trial {t}: {c[0]} -> {np.mean(c[2]):.4f}")
+    log(f"  (b) best_params_ {tuned.best_params_}, best_score_ {tuned.best_score_:.4f}, "
+        f"test macro AUC {auc:.4f}; one CV run of trial 1 ({META_SPLITS} fits + "
+        f"predicts): {cv_ms:.0f} ms, {cv_kernels:.0f} device kernels and copies, "
+        f"{cv_dev_ms:.1f} ms of device time: the card idles {cv_idle:.1%}")
+    check(np.isfinite(auc) and np.isfinite(tuned.best_score_), "tuned classifier AUC")
+    check(len(trials) == META_TRIALS + 1 and trials[0] is None, f"trials {trials}")
+    small = {}
+    for where in ("card", "cpu"):
+        kw = {} if where == "card" else {"base_estimator": ICLClassifier(device="cpu")}
+        t0 = time.perf_counter()
+        est = Tuned(n_trials=META_HOST_TRIALS, n_splits=META_SPLITS, **kw).fit(X_tr, y_tr)
+        small[where] = (est, time.perf_counter() - t0)
+    (c2, c2_s), (h2, h2_s) = small["card"], small["cpu"]
+    same_trials = [c[:2] for c in c2.calls_] == [c[:2] for c in h2.calls_]
+    d_scores = float(max(np.abs(np.subtract(a[2], b[2])).max()
+                         for a, b in zip(c2.calls_, h2.calls_)))
+    d_tuned = float(np.abs(c2.predict_proba(X_te) - h2.predict_proba(X_te)).max())
+    log(f"  (b) n_trials={META_HOST_TRIALS}, card {c2_s:.2f} s / host CPU {h2_s:.2f} s: the "
+        f"same {len(c2.calls_)} CV runs (trials and seeds): {same_trials}; fold scores max "
+        f"|d| {d_scores:.3g}; best_params_ {c2.best_params_} (host {h2.best_params_}); "
+        f"probabilities max |d| {d_tuned:.3g} (bound 1e-4)")
+    check(same_trials, "tuned classifier: trials differ card vs host")
+    check(c2.best_params_ == h2.best_params_, "tuned classifier: the pick differs")
+    check(d_tuned <= 1e-4, f"tuned classifier probabilities card vs host {d_tuned}")
+    out.update(tuned_s=tuned_s, tuned_fits=fits, tuned_fits_per_s=fits / tuned_s,
+               tuned_forwards=timer.calls["forward"], tuned_cv_runs=n_cv,
+               tuned_rescores=rescores, tuned_trials=[str(t) for t in trials],
+               tuned_best_params=str(tuned.best_params_), tuned_best_score=tuned.best_score_,
+               tuned_test_auc=auc, tuned_cv_ms=cv_ms, tuned_cv_device_ms=cv_dev_ms,
+               tuned_cv_kernels=cv_kernels, tuned_cv_idle=cv_idle,
+               tuned_small_card_s=c2_s, tuned_small_host_s=h2_s,
+               tuned_card_vs_host=d_tuned, tuned_scores_card_vs_host=d_scores)
+
+    # (c) AutoICLClassifier and SeedEnsembleICL
+    t0 = time.perf_counter()
+    auto = AutoICLClassifier(n_configs=4).fit(X_tr, y_tr)
+    auto_s = time.perf_counter() - t0
+    auto_auc = safe_roc_auc_score(y_te, auto.predict_proba(X_te))
+    t0 = time.perf_counter()
+    seeds = SeedEnsembleICL(n_members=4).fit(X_tr, y_tr)
+    seed_s = time.perf_counter() - t0
+    seed_auc = safe_roc_auc_score(y_te, seeds.predict_proba(X_te))
+    log(f"  (c) AutoICLClassifier(n_configs=4): {auto_s:.2f} s, greedy weights "
+        f"{np.round(auto.ensemble_.weights_, 4).tolist()} over [default] + 4 configs, "
+        f"{len(auto.members_)} members refit; test macro AUC {auto_auc:.4f}")
+    log(f"  (c) SeedEnsembleICL(n_members=4): {seed_s:.2f} s, seeds "
+        f"{[m.seed for m in seeds.members_]}; test macro AUC {seed_auc:.4f}")
+    check(np.isfinite(auto_auc) and np.isfinite(seed_auc), "ensemble AUC not finite")
+    out.update(auto_s=auto_s, auto_weights=auto.ensemble_.weights_.tolist(),
+               auto_test_auc=auto_auc, seed_ensemble_s=seed_s, seed_ensemble_test_auc=seed_auc)
+
+    # (d) ECOC beyond the asset's 10 classes, and the tuned regressor
+    g = np.random.default_rng(SEED + 18)
+    centers = g.normal(size=(META_ECOC_CLASSES, META_ECOC_FEATURES)) * 1.5
+    ye = g.integers(0, META_ECOC_CLASSES, META_ECOC_ROWS)
+    Xe = (centers[ye] + g.normal(size=(META_ECOC_ROWS, META_ECOC_FEATURES))).astype(np.float32)
+    Xe_tr, Xe_te, ye_tr, ye_te = train_test_split(Xe, ye, test_size=0.2, random_state=42,
+                                                  stratify=ye)
+    t0 = time.perf_counter()
+    ecoc = ManyClassClassifier(ICLClassifier()).fit(Xe_tr, ye_tr)
+    ecoc_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pe = ecoc.predict_proba(Xe_te)
+    ecoc_pred_s = time.perf_counter() - t0
+    ecoc_acc = float((ecoc.classes_[pe.argmax(1)] == ye_te).mean())
+    t0 = time.perf_counter()
+    hecoc = ManyClassClassifier(ICLClassifier(device="cpu")).fit(Xe_tr, ye_tr)
+    hpe = hecoc.predict_proba(Xe_te)
+    hecoc_s = time.perf_counter() - t0
+    d_ecoc = float(np.abs(pe - hpe).max())
+    log(f"  (d) ManyClassClassifier(ICLClassifier()) on {META_ECOC_CLASSES} classes "
+        f"({len(Xe_tr)} / {len(Xe_te)} rows, {META_ECOC_FEATURES} features): codebook "
+        f"{ecoc.code_book_.shape}, fit {ecoc_fit_s:.2f} s, predict {ecoc_pred_s * 1e3:.1f} ms, "
+        f"accuracy {ecoc_acc:.4f}; host CPU {hecoc_s:.1f} s: the same codebook "
+        f"{np.array_equal(ecoc.code_book_, hecoc.code_book_)}, probabilities max |d| "
+        f"{d_ecoc:.3g} (bound 1e-4)")
+    check(ecoc.code_book_ is not None and ecoc.code_book_.shape[0] == META_ECOC_CLASSES,
+          "ECOC codebook")
+    check(np.array_equal(ecoc.code_book_, hecoc.code_book_), "ECOC codebook card != host")
+    check(d_ecoc <= 1e-4, f"ECOC probabilities card vs host {d_ecoc}")
+    _, target = regression_target(X)
+    tr, te = train_test_split(np.arange(len(X)), test_size=0.2, random_state=42)
+    t0 = time.perf_counter()
+    treg = TunedICLRegressor(n_trials=META_REG_TRIALS).fit(X[tr], target[tr])
+    treg_s = time.perf_counter() - t0
+    r2 = score_regression("r2", target[te], treg.predict(X[te]))
+    log(f"  (d) TunedICLRegressor(n_trials={META_REG_TRIALS}) on phase 15 (d)'s target: "
+        f"{treg_s:.2f} s, best_params_ {treg.best_params_}, best_score_ (RMSE) "
+        f"{treg.best_score_:.4f}, test R^2 {r2:.4f}")
+    check(np.isfinite(r2), "tuned regressor R^2 not finite")
+    out.update(ecoc_codebook=list(ecoc.code_book_.shape), ecoc_fit_s=ecoc_fit_s,
+               ecoc_predict_s=ecoc_pred_s, ecoc_acc=ecoc_acc, ecoc_host_s=hecoc_s,
+               ecoc_card_vs_host=d_ecoc, tuned_reg_s=treg_s,
+               tuned_reg_best_params=str(treg.best_params_), tuned_reg_test_r2=r2)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 18 took {out['seconds']:.1f} s ({card})")
     return out
 
 
@@ -3101,9 +3386,12 @@ def main() -> int:
 
     # ---- 17. multimodal fusion training ---------------------------------------
     fuse = fusion_phase(torch, dev, card, work)
+
+    # ---- 18. the tabular meta-estimators --------------------------------------
+    meta_est = meta_estimators_phase(torch, dev, card, work)
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 18. result ----------------------------------------------------
+    # ---- 19. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -3210,7 +3498,7 @@ def main() -> int:
                     "native_decoder": dict(native, build_s=native_build_s),
                     "densenet": dense, "encoder": enc,
                     "mshyper_and_tools": tools, "tabular": tab,
-                    "metatrain": meta, "fusion": fuse,
+                    "metatrain": meta, "fusion": fuse, "meta_estimators": meta_est,
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -63,7 +63,8 @@ class VolumeBatcher:
     Yields host dicts {'image': (B, X, Y, Z, 1) f32 raw intensities,
     'label': (B,) i32, 'mask': (B,) f32, 'subject': list[str]} with B padded
     to `batch_size` (`mask` marks the real rows, which come first, and
-    `subject` names only them). The first of `image_keys` is 'image'; each
+    `subject` names only them); `drop_remainder` drops a ragged last batch
+    instead. The first of `image_keys` is 'image'; each
     further one (e.g. "PET") is one more (B, X, Y, Z, 1) entry under its
     lowercase name ('pet'). With `table_lookup` ({subject: vector}) each
     batch also holds 'table', the rows' vectors stacked as float32.
@@ -82,7 +83,8 @@ class VolumeBatcher:
 
     def __init__(self, records, batch_size: int = 8, num_threads: int = 8,
                  loader=load_volume, shuffle: bool = False, seed: int = 0,
-                 transform=None, image_keys=("MRI",), table_lookup=None):
+                 transform=None, image_keys=("MRI",), table_lookup=None,
+                 drop_remainder: bool = False):
         self.records = list(records)
         self.batch_size = batch_size
         self.num_threads = num_threads
@@ -92,9 +94,12 @@ class VolumeBatcher:
         self.transform = transform
         self.image_keys = tuple(image_keys)
         self.table_lookup = table_lookup
+        self.drop_remainder = drop_remainder
         self._epoch = 0
 
     def __len__(self):
+        if self.drop_remainder:
+            return len(self.records) // self.batch_size
         return (len(self.records) + self.batch_size - 1) // self.batch_size
 
     def _decode(self, rec):
@@ -110,9 +115,9 @@ class VolumeBatcher:
 
     def _chunks(self):
         """(indices, n_real) per batch of the next epoch's order; a ragged
-        last batch is padded with real samples cycled from the order, so
-        BatchNorm batch statistics see real voxels and the mask keeps them
-        out of the results."""
+        last batch is dropped with `drop_remainder`, else padded with real
+        samples cycled from the order, so BatchNorm batch statistics see
+        real voxels and the mask keeps them out of the results."""
         order = np.arange(len(self.records))
         if self.shuffle:
             np.random.default_rng((self.seed, self._epoch)).shuffle(order)
@@ -123,6 +128,8 @@ class VolumeBatcher:
             chunk = order[i:i + bs]
             n_real = len(chunk)
             if n_real < bs:
+                if self.drop_remainder:
+                    continue
                 pad = bs - n_real
                 extra = np.concatenate([order] * (pad // len(order) + 1))[:pad]
                 chunk = np.concatenate([chunk, extra])

@@ -94,9 +94,10 @@ def stratified_test_split(records: list, test_size: float = 0.2, seed: int = 42)
     return [records[i] for i in train], [records[i] for i in test]
 
 
-def stratified_fold_ids(labels, n_splits: int = 5, seed: int = 42) -> np.ndarray:
+def stratified_fold_ids(labels, n_splits: int = 5, seed=42) -> np.ndarray:
     """Validation fold (0..n_splits-1) of each sample, as
-    ``StratifiedKFold(n_splits, shuffle=True, random_state=seed)``."""
+    ``StratifiedKFold(n_splits, shuffle=True, random_state=seed)``; `seed`
+    is an int or a `np.random.RandomState` to draw from."""
     y = np.asarray(labels)
     _, y_idx, y_inv = np.unique(y, return_index=True, return_inverse=True)
     _, class_perm = np.unique(y_idx, return_inverse=True)
@@ -109,7 +110,7 @@ def stratified_fold_ids(labels, n_splits: int = 5, seed: int = 42) -> np.ndarray
     y_order = np.sort(y_encoded)
     allocation = np.asarray([np.bincount(y_order[i::n_splits], minlength=n_classes)
                              for i in range(n_splits)])
-    rng = np.random.RandomState(seed)
+    rng = seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
     folds = np.empty(len(y), dtype="i")
     for k in range(n_classes):
         folds_for_class = np.arange(n_splits).repeat(allocation[:, k])

@@ -306,6 +306,23 @@ class ResNet3D(nn.Module):
         return out
 
 
+def _factory(depth: int):
+    def make(**kw):
+        return ResNet3D(depth=depth, **kw)
+    make.__name__ = make.__qualname__ = f"resnet{depth}"
+    make.__doc__ = f"3D ResNet-{depth}: ``ResNet3D(depth={depth}, **kw)``."
+    return make
+
+
+resnet10 = _factory(10)
+resnet18 = _factory(18)
+resnet34 = _factory(34)
+resnet50 = _factory(50)
+resnet101 = _factory(101)
+resnet152 = _factory(152)
+resnet200 = _factory(200)
+
+
 def image_encoder(depth=18, in_channels=1, shortcut_type="B",
                   global_pool=False, **kw):
     """Headless encoder: 'pool' head with global_pool, else 'none'."""

@@ -8,7 +8,8 @@ The card's machine has no sklearn. The in-context estimators need:
 - the width screen's `f_classif` and `f_regression`;
 - the 'quantile' transform's `QuantileTransformer`;
 - `train_test_split` (plain, and stratified through
-  `data/splits.py::stratified_indices`) and `KFold(shuffle=False)`.
+  `data/splits.py::stratified_indices`), `KFold` and `StratifiedKFold`
+  (through `data/splits.py::stratified_fold_ids`).
 
 Each computes what sklearn 1.9 computes, with the same numpy operations on
 the same dtypes, so a screen or a transform picks the same columns and
@@ -25,7 +26,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from ..data.splits import _split_sizes, stratified_indices
+from ..data.splits import _split_sizes, stratified_fold_ids, stratified_indices
 
 #: sklearn's margin around the fitted quantile range (preprocessing/_data.py)
 BOUNDS_THRESHOLD = 1e-7
@@ -79,6 +80,17 @@ class BaseEstimator:
     def __repr__(self):
         return f"{type(self).__name__}()"
 
+    def __sklearn_tags__(self):
+        """sklearn's estimator tags, so sklearn's meta-estimators (voting,
+        stacking, feature selection) take these estimators; only sklearn
+        calls this, so sklearn is importable when it runs."""
+        from sklearn.utils import ClassifierTags, RegressorTags, Tags, TargetTags
+
+        kind = getattr(self, "_estimator_type", None)
+        return Tags(estimator_type=kind, target_tags=TargetTags(required=kind is not None),
+                    classifier_tags=ClassifierTags() if kind == "classifier" else None,
+                    regressor_tags=RegressorTags() if kind == "regressor" else None)
+
 
 class ClassifierMixin:
     _estimator_type = "classifier"
@@ -116,6 +128,18 @@ def clone(estimator, *, safe: bool = True):
     params = {k: clone(v, safe=False)
               for k, v in estimator.get_params(deep=False).items()}
     return type(estimator)(**params)
+
+
+def host_sklearn(module: str, what: str):
+    """Import ``sklearn.<module>`` for a host-only wrapper; the ImportError
+    says which wrapper needs scikit-learn (the card's machine has none)."""
+    import importlib
+
+    try:
+        return importlib.import_module(f"sklearn.{module}")
+    except ImportError as e:
+        raise ImportError(f"{what} needs scikit-learn (sklearn.{module}), which is not "
+                          "installed: it is a host-only wrapper") from e
 
 
 def _as_float_array(a) -> np.ndarray:
@@ -312,29 +336,69 @@ def train_test_split(*arrays, test_size=0.25, random_state=None, stratify=None) 
     return out
 
 
-class KFold:
-    """Contiguous folds in order (sklearn's `KFold(shuffle=False)`)."""
+def _check_n_splits(n_splits) -> int:
+    if int(n_splits) < 2:
+        raise ValueError(f"k-fold cross-validation requires at least one "
+                         f"train/test split by setting n_splits=2 or more, got "
+                         f"n_splits={n_splits}.")
+    return int(n_splits)
 
-    def __init__(self, n_splits: int = 5, *, shuffle: bool = False):
-        if int(n_splits) < 2:
-            raise ValueError(f"k-fold cross-validation requires at least one "
-                             f"train/test split by setting n_splits=2 or more, got "
-                             f"n_splits={n_splits}.")
-        if shuffle:
-            raise ValueError("only KFold(shuffle=False) is ported")
-        self.n_splits = int(n_splits)
+
+def _folds_to_splits(folds: np.ndarray, n_splits: int):
+    """(train, test) index arrays, both ascending, of each fold in order."""
+    idx = np.arange(len(folds))
+    for k in range(n_splits):
+        yield idx[folds != k], idx[folds == k]
+
+
+class KFold:
+    """Contiguous folds of ``arange(n)``, shuffled first by
+    ``RandomState(random_state)`` when `shuffle` (sklearn's `KFold`)."""
+
+    def __init__(self, n_splits: int = 5, *, shuffle: bool = False, random_state=None):
+        if not shuffle and random_state is not None:
+            raise ValueError("Setting a random_state has no effect since shuffle is "
+                             "False. You should leave random_state to its default "
+                             "(None), or set shuffle=True.")
+        self.n_splits = _check_n_splits(n_splits)
+        self.shuffle = shuffle
+        self.random_state = random_state
 
     def split(self, X, y=None, groups=None):
         n = len(X)
         if self.n_splits > n:
             raise ValueError(f"Cannot have number of splits n_splits={self.n_splits} "
                              f"greater than the number of samples: n_samples={n}.")
+        order = np.arange(n)
+        if self.shuffle:
+            _random_state(self.random_state).shuffle(order)
         sizes = np.full(self.n_splits, n // self.n_splits, dtype=int)
         sizes[:n % self.n_splits] += 1
-        idx = np.arange(n)
-        current = 0
-        for size in sizes:
-            test = idx[current:current + size]
-            train = np.concatenate([idx[:current], idx[current + size:]])
-            yield train, test
-            current += size
+        folds = np.empty(n, dtype=int)
+        folds[order] = np.repeat(np.arange(self.n_splits), sizes)
+        return _folds_to_splits(folds, self.n_splits)
+
+
+class StratifiedKFold:
+    """Shuffled folds that keep each class's share (sklearn's
+    `StratifiedKFold(shuffle=True)`): the fold of each sample from
+    `data/splits.py::stratified_fold_ids`."""
+
+    def __init__(self, n_splits: int = 5, *, shuffle: bool = False, random_state=None):
+        if not shuffle:
+            raise ValueError("only StratifiedKFold(shuffle=True) is ported")
+        self.n_splits = _check_n_splits(n_splits)
+        self.random_state = random_state
+
+    def split(self, X, y, groups=None):
+        y = np.asarray(y)
+        if self.n_splits > len(y):
+            raise ValueError(f"Cannot have number of splits n_splits={self.n_splits} "
+                             f"greater than the number of samples: n_samples={len(y)}.")
+        counts = np.unique(y, return_counts=True)[1]
+        if self.n_splits > counts.min() and not np.all(self.n_splits > counts):
+            warnings.warn(f"The least populated class in y has only {counts.min()} "
+                          f"members, which is less than n_splits={self.n_splits}.",
+                          UserWarning)
+        folds = stratified_fold_ids(y, self.n_splits, _random_state(self.random_state))
+        return _folds_to_splits(folds, self.n_splits)

@@ -1003,8 +1003,8 @@ class ICLClassifier(FeaturePreprocessMixin, ClassifierMixin, BaseEstimator):
         self._views_dev = (
             torch.from_numpy(np.stack([x_ctx[:, p] for p in fp])).to(dev),
             torch.from_numpy(np.stack([c[y_ctx] for c in cp]).astype(np.int64)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(
-                np.broadcast_to(mask, (V, mask.shape[0])))).to(dev),
+            # a copy: with V = 1 a broadcast view would alias the fitted mask
+            torch.from_numpy(np.repeat(mask[None], V, 0)).to(dev),
             torch.from_numpy(np.stack([cat_vec[p] for p in fp])).to(dev))
         return self
 

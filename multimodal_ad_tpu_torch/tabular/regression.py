@@ -5,8 +5,10 @@ Backed by the bar-distribution network (icl_regression.py): context rows
 embed the continuous target, the head emits a piecewise-uniform
 distribution over context-normalized target space, and `predict` takes the
 mean, median or quantiles of the view-averaged distribution. No gradients
-at inference. The decision-tree, random-forest and tuned regressors of the
-TPU package are not ported here.
+at inference. Beside it (the TPU package's regression.py:272-448): the
+decision-tree and random-forest hybrids with regressors at the leaves
+(host-only: sklearn's tree partitions), and `TunedICLRegressor`, the TPE
+search with `hpo.guarded_selection`'s guard over shuffled `KFold` CV.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .estimator import BaseEstimator, RegressorMixin
+from .estimator import BaseEstimator, RegressorMixin, clone, host_sklearn
 from .icl import FeaturePreprocessMixin, _zscore_by_ctx, asset_key, cached_network, to_host
 
 
@@ -170,14 +172,12 @@ class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
         self._views = np.stack(fp)
         # permuted context views are fit-time constants: built + uploaded once
         x_ctx = self._fitted["x_ctx"][0]
-        n = x_ctx.shape[0]
         dev = self._device
         self._views_dev = (
             torch.from_numpy(np.stack([x_ctx[:, p] for p in fp])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
-                self._fitted["y_ctx"][0], (V, n)))).to(dev),
-            torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
-                self._fitted["ctx_mask"][0], (V, n)))).to(dev))
+            # copies: with V = 1 a broadcast view would alias the fitted arrays
+            torch.from_numpy(np.repeat(self._fitted["y_ctx"][0][None], V, 0)).to(dev),
+            torch.from_numpy(np.repeat(self._fitted["ctx_mask"][0][None], V, 0)).to(dev))
         return self
 
     def _bar_probs(self, X):
@@ -242,3 +242,186 @@ class ICLRegressor(FeaturePreprocessMixin, RegressorMixin, BaseEstimator):
         """(1, n, d_model): the identity view's query states."""
         _, emb = self._bar_probs(X)
         return emb[None]
+
+
+class DecisionTreeICLRegressor(RegressorMixin, BaseEstimator):
+    """Shallow regression tree (sklearn's, imported by `fit`: host-only)
+    with base regressors at the leaves; a leaf with fewer than
+    `min_leaf_fit` samples or a constant target predicts its mean."""
+
+    def __init__(self, estimator=None, max_depth: int = 2,
+                 min_leaf_fit: int = 8, random_state: int = 0):
+        self.estimator = estimator
+        self.max_depth = max_depth
+        self.min_leaf_fit = min_leaf_fit
+        self.random_state = random_state
+
+    def fit(self, X, y):
+        tree = host_sklearn("tree", "DecisionTreeICLRegressor")
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y, np.float64)
+        self.tree_ = tree.DecisionTreeRegressor(
+            max_depth=self.max_depth, random_state=self.random_state,
+            min_samples_leaf=max(2, self.min_leaf_fit // 2))
+        self.tree_.fit(X, y)
+        leaves = self.tree_.apply(X)
+        self.leaf_models_ = {}
+        self.leaf_means_ = {}
+        for leaf in np.unique(leaves):
+            m = leaves == leaf
+            self.leaf_means_[int(leaf)] = float(y[m].mean())
+            if m.sum() >= self.min_leaf_fit and np.std(y[m]) > 1e-12:
+                est = (clone(self.estimator) if self.estimator is not None
+                       else tree.DecisionTreeRegressor(max_depth=3))
+                est.fit(X[m], y[m])
+                self.leaf_models_[int(leaf)] = est
+        return self
+
+    def predict(self, X):
+        X = np.asarray(X, np.float32)
+        leaves = self.tree_.apply(X)
+        out = np.zeros(len(X))
+        for leaf in np.unique(leaves):
+            m = leaves == leaf
+            model = self.leaf_models_.get(int(leaf))
+            out[m] = (self.leaf_means_.get(int(leaf), 0.0) if model is None
+                      else model.predict(X[m]))
+        return out
+
+
+class RandomForestICLRegressor(RegressorMixin, BaseEstimator):
+    """Bagged DecisionTreeICLRegressors over bootstrap samples from
+    ``np.random.default_rng(random_state)``."""
+
+    def __init__(self, estimator=None, n_estimators: int = 4,
+                 max_depth: int = 2, min_leaf_fit: int = 8,
+                 bootstrap: bool = True, random_state: int = 0):
+        self.estimator = estimator
+        self.n_estimators = n_estimators
+        self.max_depth = max_depth
+        self.min_leaf_fit = min_leaf_fit
+        self.bootstrap = bootstrap
+        self.random_state = random_state
+
+    def fit(self, X, y):
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y, np.float64)
+        rng = np.random.default_rng(self.random_state)
+        self.trees_ = []
+        for t in range(self.n_estimators):
+            idx = (rng.integers(0, len(X), len(X)) if self.bootstrap
+                   else np.arange(len(X)))
+            tree = DecisionTreeICLRegressor(
+                estimator=self.estimator, max_depth=self.max_depth,
+                min_leaf_fit=self.min_leaf_fit,
+                random_state=self.random_state + t)
+            tree.fit(X[idx], y[idx])
+            self.trees_.append(tree)
+        return self
+
+    def predict(self, X):
+        return np.mean([t.predict(X) for t in self.trees_], axis=0)
+
+
+class TunedICLRegressor(RegressorMixin, BaseEstimator):
+    """Tuned regressor (TunedTabPFNRegressor's role): adaptive TPE trial
+    proposal (`hpo.TPESampler`, the reference's hyperopt dimension;
+    ``search="random"`` recovers random search) with the same
+    selection-bias guard as the classifier wrapper — the default config
+    wins unless a trial beats it by more than CV noise
+    (`hpo.guarded_selection`)."""
+
+    def __init__(self, base_estimator=None, n_trials: int = 10,
+                 metric: str = "rmse", n_splits: int = 3,
+                 random_state: int = 0, search: str = "adaptive"):
+        self.search = search
+        self.base_estimator = base_estimator
+        self.n_trials = n_trials
+        self.metric = metric
+        self.n_splits = n_splits
+        self.random_state = random_state
+
+    def _cv_scores(self, X, y, trial, seed):
+        from .estimator import KFold
+        from .scoring import score_regression
+
+        kf = KFold(n_splits=self.n_splits, shuffle=True, random_state=seed)
+        scores = []
+        for tr, vl in kf.split(X):
+            est = self._make(trial).fit(X[tr], y[tr])
+            scores.append(score_regression(self.metric, y[vl],
+                                           est.predict(X[vl])))
+        return scores
+
+    def fit(self, X, y):
+        from .hpo import TPESampler, guarded_selection
+
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y, np.float64)
+        rng = np.random.default_rng(self.random_state)
+
+        def draw(r):
+            return {
+                "softmax_temperature": float(r.choice([0.75, 1.0, 1.25])),
+                "seed": int(r.integers(0, 10_000)),
+                "preprocess": [None, None, "quantile", "whiten", "pairs"][
+                    int(r.integers(0, 5))],
+                # permuted-view count (the classifier HPO space's
+                # n_estimators dimension); _make only applies it when the
+                # base exposes it
+                "n_estimators": int(r.choice([1, 4, 8])),
+            }
+
+        proposer = None
+        if self.search == "adaptive":
+            proposer = TPESampler(
+                {"softmax_temperature": [0.75, 1.0, 1.25],
+                 "preprocess": [None, "quantile", "whiten", "pairs"],
+                 "n_estimators": [1, 4, 8]}, init_sampler=draw,
+                n_init=max(4, min(8, self.n_trials // 2)))
+        elif self.search != "random":
+            raise ValueError(f"unknown search={self.search!r}")
+        # trial None = the unmodified base config; tuning never loses to it
+        trials, fold_scores = [], []
+        for t in range(1 + self.n_trials):
+            if t == 0:
+                trial = None
+            elif proposer is None:
+                trial = draw(rng)
+            else:
+                trial = dict(proposer.ask(rng))
+                trial["seed"] = int(rng.integers(0, 10_000))
+            scores = self._cv_scores(X, y, trial, self.random_state)
+            trials.append(trial)
+            fold_scores.append(scores)
+            if proposer is not None and trial is not None:
+                # losses: negate so the sampler's good set is low-rmse
+                proposer.tell(trial, -float(np.nanmean(scores)))
+        pick, fresh = guarded_selection(
+            trials, fold_scores,
+            rescore=lambda tr, rep: self._cv_scores(
+                X, y, tr, self.random_state + 1 + rep),
+            sign=-1.0, return_evidence=True)  # rmse/mse/mae: lower better
+        self.best_params_ = trials[pick]
+        # fresh-fold mean when the guard re-scored (winner's-curse fix)
+        self.best_score_ = float(np.nanmean(
+            fresh if fresh else fold_scores[pick]))
+        self.best_estimator_ = self._make(trials[pick]).fit(X, y)
+        return self
+
+    def _make(self, trial):
+        if self.base_estimator is not None:
+            est = clone(self.base_estimator)
+            if trial is not None:
+                est.set_params(**{k: v for k, v in trial.items()
+                                  if k in est.get_params()})
+            return est
+        if trial is None:  # the unmodified base config (auto preprocess)
+            return ICLRegressor()
+        return ICLRegressor(softmax_temperature=trial["softmax_temperature"],
+                            seed=trial["seed"],
+                            preprocess=trial.get("preprocess"),
+                            n_estimators=trial.get("n_estimators", 8))
+
+    def predict(self, X):
+        return self.best_estimator_.predict(X)

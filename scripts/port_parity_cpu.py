@@ -19,7 +19,11 @@ package's `sample_tasks_device` and the host prior over 256 tasks, whose
 JAX compile takes about a minute, and the TINY estimators meta-trained
 where no asset applies); `--only fusion` those of the fusion models
 (MultimodalClassifier in its three modality sets and DAFTResNet, eval and
-train mode at 16^3 and 35x50x33, one train step of each arch).
+train mode at 16^3 and 35x50x33, one train step of each arch); `--only
+meta` those of the tabular meta-estimators (scoring, the unsupervised
+model, and over one TINY network meta-trained by the port: the tuned
+classifier and regressor, the ensembles, ECOC, the tree hybrids, Shapley
+values; then exact Shapley values of the full-width classifier asset).
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ def report(name, a, b):
 def main():
     only = {"int8": int8_parity, "densenet": densenet_parity, "encoder": encoder_parity,
             "hypergraph": hypergraph_parity, "tabular": tabular_parity,
-            "pretrain": pretrain_parity, "fusion": fusion_parity}
+            "pretrain": pretrain_parity, "fusion": fusion_parity, "meta": meta_parity}
     if sys.argv[1:2] == ["--only"]:
         if len(sys.argv) != 3 or sys.argv[2] not in only:
             raise SystemExit(f"usage: port_parity_cpu.py [--only {'|'.join(only)}]")
@@ -1135,6 +1139,135 @@ def _u_float64(jm, v, batch, cw, arch):
                                       g, f64["params"])
     finally:
         jax.config.update("jax_enable_x64", False)
+
+
+
+def meta_parity():
+    """The tabular meta-estimators against the JAX package on the same
+    inputs and weights (tests/test_torch_port_tabular_meta*.py's cases)."""
+    import warnings
+
+    from multimodal_ad_tpu.tabular import ensembles as jens
+    from multimodal_ad_tpu.tabular import hpo as jhpo
+    from multimodal_ad_tpu.tabular import icl as jicl
+    from multimodal_ad_tpu.tabular import icl_regression as jicr
+    from multimodal_ad_tpu.tabular import interpretability as jint
+    from multimodal_ad_tpu.tabular import many_class as jmc
+    from multimodal_ad_tpu.tabular import regression as jreg
+    from multimodal_ad_tpu.tabular import rf_icl as jrf
+    from multimodal_ad_tpu.tabular import scoring as jsc
+    from multimodal_ad_tpu.tabular import unsupervised as jun
+    from multimodal_ad_tpu_torch.tabular import ensembles as tens
+    from multimodal_ad_tpu_torch.tabular import hpo as thpo
+    from multimodal_ad_tpu_torch.tabular import icl as ticl
+    from multimodal_ad_tpu_torch.tabular import icl_regression as ticr
+    from multimodal_ad_tpu_torch.tabular import interpretability as tint
+    from multimodal_ad_tpu_torch.tabular import many_class as tmc
+    from multimodal_ad_tpu_torch.tabular import regression as treg
+    from multimodal_ad_tpu_torch.tabular import rf_icl as trf
+    from multimodal_ad_tpu_torch.tabular import scoring as tsc
+    from multimodal_ad_tpu_torch.tabular import unsupervised as tun
+
+    def clusters(n, f, sep, seed, k=2):
+        rng = np.random.default_rng(seed)
+        y = rng.integers(0, k, n)
+        X = (rng.normal(size=(k, f))[y] * sep + rng.normal(size=(n, f))).astype(np.float32)
+        return X, y
+
+    rng = np.random.default_rng(0)
+    worst = {"classification": 0.0, "regression": 0.0}
+    for trial in range(300):
+        k, n = int(rng.integers(2, 5)), int(rng.integers(4, 40))
+        y = np.r_[np.arange(k), rng.integers(0, k, n - k)]  # every class present
+        p = rng.dirichlet(np.ones(k), n)
+        if trial % 3 == 0:
+            p = np.round(p, 1)
+            p /= p.sum(1, keepdims=True)
+        for m in ("roc_auc", "accuracy", "balanced_accuracy", "f1", "log_loss"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                a, b = jsc.score_classification(m, y, p), tsc.score_classification(m, y, p)
+            if np.isfinite(a):
+                worst["classification"] = max(worst["classification"], abs(a - b))
+        yt, yp = rng.normal(size=n), rng.normal(size=n)
+        for m in ("rmse", "mse", "mae", "r2"):
+            worst["regression"] = max(worst["regression"], abs(
+                jsc.score_regression(m, yt, yp) - tsc.score_regression(m, yt, yp)))
+    for k, v in worst.items():
+        print(f"{'scoring: ' + k + ' metrics, 300 random cases':58s} max|d| {v:.3e}")
+
+    X, _ = clusters(300, 6, 2.0, 2)
+    X = X.astype(np.float64)
+    X[:, 3] = X[:, 0] * 2.0 + 0.1 * np.random.default_rng(0).normal(size=300)
+    X[:, 4] = (X[:, 1] > 0).astype(float)
+    X[:, 5] = np.digitize(X[:, 2], [-1.0, 1.0]).astype(float)
+    ju = jun.TabularUnsupervisedModel(n_permutations=3).fit(X)
+    tu = tun.TabularUnsupervisedModel(n_permutations=3).fit(X)
+    Xm = X[:50].copy()
+    Xm[:, 3] = np.nan
+    report("unsupervised impute", tu.impute(Xm), ju.impute(Xm))
+    report("unsupervised outliers", tu.outliers(X[:20] + 15.0), ju.outliers(X[:20] + 15.0))
+    report("unsupervised synthetic data", tu.generate_synthetic_data(80),
+           ju.generate_synthetic_data(80))
+    report("unsupervised embeddings", tu.get_embeddings(X[:10]), ju.get_embeddings(X[:10]))
+
+    tiny = dict(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=12)
+    cfg_t = ticl.ICLConfig(max_classes=4, max_context=64, **tiny)
+    params, _ = ticl.pretrain_icl(cfg_t, steps=150, batch=16, n_ctx=48, n_qry=16, lr=1e-3,
+                                  seed=0, device="cpu")
+    kw = dict(params=params, preprocess=None, n_estimators=2)
+    jb = jicl.ICLClassifier(cfg=jicl.ICLConfig(max_classes=4, max_context=64, **tiny), **kw)
+    tb = ticl.ICLClassifier(cfg=cfg_t, device="cpu", **kw)
+    rcfg = ticr.RegICLConfig(max_context=64, n_bins=16, **tiny)
+    rparams, _ = ticr.pretrain_icl_regression(rcfg, steps=150, batch=16, n_ctx=48, n_qry=16,
+                                              lr=1e-3, seed=0, device="cpu")
+    rkw = dict(params=rparams, preprocess=None, n_estimators=2)
+    jr = jreg.ICLRegressor(cfg=jicr.RegICLConfig(max_context=64, n_bins=16, **tiny), **rkw)
+    tr = treg.ICLRegressor(cfg=rcfg, device="cpu", **rkw)
+    X, y = clusters(150, 6, 1.0, 5)
+    j = jhpo.TunedICLClassifier(jb, n_trials=4, n_splits=2).fit(X[:100], y[:100])
+    t = thpo.TunedICLClassifier(tb, n_trials=4, n_splits=2).fit(X[:100], y[:100])
+    print(f"{'TunedICLClassifier best_params_ equal':58s} {t.best_params_ == j.best_params_}")
+    report("TunedICLClassifier best_score_", t.best_score_, j.best_score_)
+    report("TunedICLClassifier predict_proba", t.predict_proba(X[100:]), j.predict_proba(X[100:]))
+    for name, jc, tc in (("SeedEnsembleICL(4, average_logits)",
+                          jhpo.SeedEnsembleICL(jb, 4, average_logits=True),
+                          thpo.SeedEnsembleICL(tb, 4, average_logits=True)),
+                         ("AutoICLClassifier(n_configs=3)", jens.AutoICLClassifier(jb, 3),
+                          tens.AutoICLClassifier(tb, 3)),
+                         ("DecisionTreeICLClassifier (ICL leaves)",
+                          jrf.DecisionTreeICLClassifier(jb, 1, 20),
+                          trf.DecisionTreeICLClassifier(tb, 1, 20)),
+                         ("RandomForestICLClassifier (ICL leaves)",
+                          jrf.RandomForestICLClassifier(jb, 2, 1, 20),
+                          trf.RandomForestICLClassifier(tb, 2, 1, 20))):
+        report(name + " predict_proba", tc.fit(X[:100], y[:100]).predict_proba(X[100:]),
+               jc.fit(X[:100], y[:100]).predict_proba(X[100:]))
+    Xk, yk = clusters(160, 5, 4.0, 0, k=6)
+    report("ManyClassClassifier (6 classes, alphabet 4) predict_proba",
+           tmc.ManyClassClassifier(tb, 4).fit(Xk[:120], yk[:120]).predict_proba(Xk[120:]),
+           jmc.ManyClassClassifier(jb, 4).fit(Xk[:120], yk[:120]).predict_proba(Xk[120:]))
+    rng = np.random.default_rng(7)
+    Xr = rng.normal(size=(120, 4)).astype(np.float32)
+    yr = Xr @ np.array([1.0, -2.0, 0.5, 0.0]) + 0.1 * rng.normal(size=120)
+    j = jreg.TunedICLRegressor(jr, n_trials=3, n_splits=2).fit(Xr[:90], yr[:90])
+    t = treg.TunedICLRegressor(tr, n_trials=3, n_splits=2).fit(Xr[:90], yr[:90])
+    print(f"{'TunedICLRegressor best_params_ equal':58s} {t.best_params_ == j.best_params_}")
+    report("TunedICLRegressor predict", t.predict(Xr[90:]), j.predict(Xr[90:]))
+    jf, tf = jb.fit(X[:80], y[:80]), tb.fit(X[:80], y[:80])
+    mc = dict(n_draws=4, random_state=1, exact_max_features=0)
+    for name, fn, rows, kw in (
+            ("shapley_values exact (TINY, 2^6 coalitions)", "shapley_values", 3, {}),
+            ("shapley_values Monte-Carlo (TINY)", "shapley_values", 3, mc),
+            ("shapley_interaction_values (TINY)", "shapley_interaction_values", 1, {})):
+        report(name, getattr(tint, fn)(tf, X[80:80 + rows], X[:80], **kw),
+               getattr(jint, fn)(jf, X[80:80 + rows], X[:80], **kw))
+    Xa, ya = clusters(90, 6, 1.5, 3)
+    ja = jicl.ICLClassifier(preprocess=None, n_estimators=2).fit(Xa[:60], ya[:60])
+    ta = ticl.ICLClassifier(preprocess=None, n_estimators=2, device="cpu").fit(Xa[:60], ya[:60])
+    report("shapley_values exact, the classifier asset (2^6 coalitions)",
+           tint.shapley_values(ta, Xa[60:62], background=Xa[:60]),
+           jint.shapley_values(ja, Xa[60:62], background=Xa[:60]))
 
 
 if __name__ == "__main__":

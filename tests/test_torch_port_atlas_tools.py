@@ -24,6 +24,9 @@ from multimodal_ad_tpu_torch.cli import roi_visualize as roi_cli
 from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.eval import atlas, html_view, stats
 from multimodal_ad_tpu_torch.utils import nifti
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPE = (12, 14, 10)
 

@@ -36,6 +36,9 @@ from multimodal_ad_tpu_torch.train import checkpoint as ckpt
 from multimodal_ad_tpu_torch.train import loop as tloop
 from multimodal_ad_tpu_torch.train import metrics as tmetrics
 from multimodal_ad_tpu_torch.utils.logging import CV_CSV_HEADER
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 BINARY = {
     "ties": ([0, 0, 1, 1, 1, 0, 1, 0], [0, 1, 1, 1, 0, 0, 1, 0],

@@ -4,7 +4,8 @@
   data/splits.py: membership and order, exact;
 - `make_atlas`, `load_atlas` (JSON and both text LUTs, resampled or not)
   and `compact_labels` against the JAX package's: exact;
-- `VolumeBatcher` batches against the JAX package's, and `device_prefetch`
+- `VolumeBatcher` batches against the JAX package's (`drop_remainder` too),
+  and `device_prefetch`
   on the CPU: tensors, error propagation, early close."""
 
 import json
@@ -24,6 +25,9 @@ from multimodal_ad_tpu_torch.data.adni import ADNIManifest
 from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.eval import atlas as tatlas
 from multimodal_ad_tpu_torch.utils import nifti
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 MANIFESTS = {
     "balanced": [0] * 25 + [1] * 25,
@@ -157,6 +161,21 @@ def test_batcher_equals_jax(adni_dir, n, bs):
             np.testing.assert_array_equal(a[k], b[k])
         assert a["subject"] == b["subject"]
     assert ours[-1]["image"].shape[0] == bs
+
+
+@pytest.mark.parametrize("n,bs", [(5, 2), (7, 4), (4, 4), (3, 8)])
+def test_batcher_drop_remainder_equals_jax(adni_dir, n, bs):
+    """`drop_remainder`: the JAX package's length and batches, the ragged
+    last batch left out (none at all when one batch is ragged)."""
+    recs = _manifest(adni_dir, n)
+    ours = tpipe.VolumeBatcher(recs, batch_size=bs, num_threads=2, drop_remainder=True)
+    ref = jpipe.VolumeBatcher(recs, _raw, bs, num_threads=2, drop_remainder=True)
+    got, want = list(ours), list(ref)
+    assert len(ours) == len(ref) == len(got) == len(want) == n // bs
+    for a, b in zip(got, want):
+        for k in ("image", "label", "mask"):
+            np.testing.assert_array_equal(a[k], b[k])
+        assert a["subject"] == b["subject"] and a["mask"].all()
 
 
 def test_prefetch_on_cpu_yields_tensors(adni_dir):

@@ -29,6 +29,9 @@ from multimodal_ad_tpu_torch.train.cv import _make_model
 from multimodal_ad_tpu_torch.utils.torch_weights import (densenet_name_map,
                                                          densenet_state_dict_from_flax)
 from test_torch_port_models import random_flax_variables
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 SMALL = dict(growth=4, block_config=(2, 2), dilations=(1, 2), init_features=8)
 CASES = {

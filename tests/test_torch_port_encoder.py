@@ -33,6 +33,9 @@ from multimodal_ad_tpu_torch.utils.torch_weights import (load_medicalnet_weights
                                                          resnet3d_name_map,
                                                          state_dict_from_flax)
 from test_torch_port_models import random_flax_variables
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _read(path):

@@ -30,6 +30,9 @@ from multimodal_ad_tpu_torch.ops import fused_gather, roi_pool
 from multimodal_ad_tpu_torch.utils import nifti
 from multimodal_ad_tpu_torch.utils.torch_weights import unet3d_state_dict_from_flax
 from test_torch_port_unet import NARROW, random_unet_variables
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 ROI_NAMES = ["A", "B", "C"]
 

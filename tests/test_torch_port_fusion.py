@@ -38,6 +38,9 @@ from multimodal_ad_tpu_torch.train.cv import _device_batches
 from multimodal_ad_tpu_torch.train.loop import create_train_state, make_epoch_schedule
 from multimodal_ad_tpu_torch.utils.torch_weights import (daft_state_dict_from_flax,
                                                          multimodal_state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads, default_torch_threads  # noqa: F401
+
+cap_torch_threads()
 
 SHAPE = (16, 16, 16)
 ODD = (35, 50, 33)  # 35->17->8->4->2, 50->25->12->6->3, 33->16->8->4->2: 12 tokens
@@ -147,6 +150,7 @@ MODALITY_SETS = {"mri": (False, False), "mri+table": (False, True),
                  "mri+pet+table": (True, True)}
 
 
+@pytest.mark.usefixtures("default_torch_threads")
 @pytest.mark.parametrize(
     "use_pet,use_table,shape",
     [(*m, SHAPE) for m in MODALITY_SETS.values()] + [(*m, ODD) for m in MODALITY_SETS.values()],

@@ -8,8 +8,10 @@ ResNet and of the U-Net classifier, the training epoch iterator, the
 host-planned augmentation, the int8 ensemble and depth-34 and depth-50
 int8 folds, and the DenseNet train steps, encoder features, the seg head,
 MSHyper, the native NIfTI decoder, the ICL meta-training (the device prior
-and a few steps) and the fusion models' forwards and train steps on the
-card's machine. This file imports no JAX, so it also runs on the card's
+and a few steps), the fusion models' forwards and train steps and the
+tabular meta-estimators (tuning, ECOC, Shapley values) on the card's
+machine; the meta-estimators also run without sklearn or matplotlib, and
+their host-only wrappers raise ImportError naming what they need. This file imports no JAX, so it also runs on the card's
 machine."""
 
 import os
@@ -27,6 +29,9 @@ from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg
 from multimodal_ad_tpu_torch.ops import int8_conv as tk3
 from multimodal_ad_tpu_torch.ops import roi_pool as trp
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 PKG_DIR = os.path.dirname(multimodal_ad_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -1413,3 +1418,150 @@ def test_fusion_models_on_the_card_match_the_host(cuda, arch):
         outs[str(dev)] = (probs.cpu(), float(loss))
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=0, atol=1e-4)
     assert abs(outs["cuda"][1] - outs["cpu"][1]) <= 1e-4 * abs(outs["cpu"][1])
+
+
+META_MODULES = ("scoring", "many_class", "rf_icl", "hpo", "ensembles", "unsupervised",
+                "interpretability", "benchmarking", "plotting")
+META_BLOCKED = TABULAR_BLOCKED + ("matplotlib",)
+
+
+def test_meta_estimator_modules_import_without_jax_sklearn_or_matplotlib():
+    """The tabular package and each meta-estimator module (walked by
+    test_imports_with_jax_blocked too) import with JAX, the JAX package,
+    sklearn and matplotlib blocked, and pull none of them in."""
+    mods = [f"multimodal_ad_tpu_torch.tabular.{m}" for m in META_MODULES]
+    assert set(mods) <= set(_port_modules())
+    code = (
+        "import sys\n"
+        f"for name in {META_BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        "from multimodal_ad_tpu_torch.tabular import (pretrain_icl, TunedICLClassifier,"
+        " AutoICLClassifier, ManyClassClassifier, TabularUnsupervisedModel)\n"
+        "import multimodal_ad_tpu_torch.tabular as tab\n"
+        "assert all(hasattr(tab, n) for n in tab.__all__)\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import multimodal_ad_tpu_torch.models, multimodal_ad_tpu_torch.train,"
+        " multimodal_ad_tpu_torch.data\n"
+        f"loaded = [m for m in sys.modules if sys.modules[m] is not None"
+        f" and m.split('.')[0] in {META_BLOCKED!r}]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_meta_estimators_run_without_sklearn_or_matplotlib(tmp_path):
+    """With the card machine's absences (and matplotlib's): the tuned
+    classifier and regressor, the seed and greedy ensembles, ECOC over the
+    classifier, Shapley values, the unsupervised model and `Experiment`
+    run on the CPU; each host-only wrapper raises ImportError naming what
+    it needs."""
+    code = (
+        "import sys\n"
+        f"for name in {META_BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from multimodal_ad_tpu_torch.tabular import *\n"
+        "from multimodal_ad_tpu_torch.tabular.icl import init_icl_params\n"
+        "from multimodal_ad_tpu_torch.tabular.icl_regression import init_reg_icl_params\n"
+        "from multimodal_ad_tpu_torch.tabular.interpretability import (feature_selection,"
+        " shapley_values)\n"
+        "from multimodal_ad_tpu_torch.tabular.benchmarking import Experiment\n"
+        "small = dict(d_model=16, n_heads=2, n_layers=1, d_ff=32, max_features=8,"
+        " max_context=64)\n"
+        "cfg = ICLConfig(max_classes=3, **small)\n"
+        "icl = ICLClassifier(params=init_icl_params(cfg), cfg=cfg, preprocess=None,"
+        " n_estimators=2, device='cpu')\n"
+        "rcfg = RegICLConfig(n_bins=8, **small)\n"
+        "reg = ICLRegressor(params=init_reg_icl_params(rcfg), cfg=rcfg, preprocess=None,"
+        " n_estimators=2, device='cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "y = rng.integers(0, 2, 60)\n"
+        "X = (rng.normal(size=(60, 5)) + y[:, None]).astype(np.float32)\n"
+        "t = TunedICLClassifier(icl, n_trials=2, n_splits=2).fit(X, y)\n"
+        "assert t.predict_proba(X[:4]).shape == (4, 2) and np.isfinite(t.best_score_)\n"
+        "assert AutoICLClassifier(icl, n_configs=2).fit(X, y).predict(X[:4]).shape == (4,)\n"
+        "assert SeedEnsembleICL(icl, n_members=2).fit(X, y).predict(X[:4]).shape == (4,)\n"
+        "yk = rng.integers(0, 5, 60)\n"
+        "m = ManyClassClassifier(icl, alphabet_size=3).fit(X, yk)\n"
+        "assert m.code_book_ is not None and m.predict_proba(X[:4]).shape == (4, 5)\n"
+        "r = TunedICLRegressor(reg, n_trials=2, n_splits=2).fit(X, X[:, 0])\n"
+        "assert np.isfinite(r.predict(X[:4])).all()\n"
+        "sv = shapley_values(t, X[:2])\n"
+        "assert sv.shape == (2, 5) and np.isfinite(sv).all()\n"
+        "Xc = np.c_[X, rng.integers(0, 3, 60)]\n"
+        "u = TabularUnsupervisedModel(n_permutations=2).fit(Xc)\n"
+        "assert np.isfinite(u.outliers(Xc[:5])).all()\n"
+        "class E(Experiment):\n"
+        "    def run_experiment(self):\n"
+        "        return {'v': float(torch.rand(1))}\n"
+        f"e = E(output_dir={str(tmp_path)!r})\n"
+        "e.run()\n"
+        "for fn, need in ((lambda: DecisionTreeICLClassifier(icl).fit(X, y), 'sklearn'),"
+        " (lambda: RandomForestICLRegressor(reg).fit(X, X[:, 0]), 'sklearn'),"
+        " (lambda: make_voting_classifier([('a', icl)]), 'sklearn'),"
+        " (lambda: make_stacking_classifier([('a', icl)]), 'sklearn'),"
+        " (lambda: feature_selection(icl, X, y), 'sklearn'),"
+        " (lambda: plot_attributions(sv), 'matplotlib'), (e.plot, 'matplotlib')):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except ImportError as err:\n"
+        "        assert need in str(err), err\n"
+        "    else:\n"
+        "        raise AssertionError('a host-only wrapper ran')\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_meta_estimators_raise_without_a_card(no_cuda):
+    """Their default base estimators run on the card: without one they
+    raise before any work."""
+    from multimodal_ad_tpu_torch.tabular import (AutoICLClassifier, ManyClassClassifier,
+                                                 SeedEnsembleICL, TunedICLClassifier,
+                                                 TunedICLRegressor)
+    from multimodal_ad_tpu_torch.tabular.icl import ICLClassifier
+
+    X = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    y = np.arange(40) % 2
+    for est in (TunedICLClassifier(n_trials=1), AutoICLClassifier(n_configs=1),
+                SeedEnsembleICL(n_members=1), ManyClassClassifier(ICLClassifier())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            est.fit(X, y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TunedICLRegressor(n_trials=1).fit(X, X[:, 0])
+
+
+@pytest.mark.cuda
+def test_meta_estimators_on_the_card_match_the_host(cuda):
+    """A tuned classifier (the same trials and pick), ECOC and exact Shapley
+    values on a random TINY network: card against host."""
+    from multimodal_ad_tpu_torch.tabular import ManyClassClassifier, TunedICLClassifier
+    from multimodal_ad_tpu_torch.tabular.icl import ICLClassifier, ICLConfig, init_icl_params
+    from multimodal_ad_tpu_torch.tabular.interpretability import shapley_values
+
+    cfg = ICLConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=12,
+                    max_classes=4, max_context=64)
+    params = init_icl_params(cfg, seed=1)
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 6, 120)
+    X = (rng.normal(size=(120, 6)) + 0.7 * y[:, None]).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        base = ICLClassifier(params=params, cfg=cfg, preprocess=None, n_estimators=2,
+                             device=dev)
+        t = TunedICLClassifier(base, n_trials=3, n_splits=2).fit(X[:80], y[:80] % 2)
+        m = ManyClassClassifier(base, alphabet_size=4).fit(X[:80], y[:80])
+        out[dev] = (t.best_params_, t.predict_proba(X[80:]), m.code_book_,
+                    m.predict_proba(X[80:]), shapley_values(t, X[80:82]))
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
+    for i in (1, 3, 4):
+        np.testing.assert_allclose(out["cuda"][i], out["cpu"][i], rtol=0, atol=1e-4)

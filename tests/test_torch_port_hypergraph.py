@@ -16,6 +16,9 @@ import torch
 from multimodal_ad_tpu.models import hypergraph as jhg
 from multimodal_ad_tpu_torch.models import hypergraph as thg
 from multimodal_ad_tpu_torch.utils.torch_weights import mshyper_state_dict_from_flax
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.mark.parametrize("seq_len,windows,inner", [(16, (4, 4), 3), (8, (2,), 2),

@@ -38,6 +38,9 @@ from multimodal_ad_tpu_torch.ops import int8_conv as k3
 from multimodal_ad_tpu_torch.serve import EnsemblePredictor
 from multimodal_ad_tpu_torch.train.metrics import binary_auc
 from multimodal_ad_tpu_torch.utils.torch_weights import state_dict_from_flax
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPE = (16, 20, 16)
 

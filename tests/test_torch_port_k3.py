@@ -21,6 +21,9 @@ import torch
 
 from multimodal_ad_tpu.models import resnet3d_int8 as jq8
 from multimodal_ad_tpu_torch.ops import int8_conv as k3
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _jax_block_out(acc, k, b, r, s_next):

@@ -21,6 +21,9 @@ from multimodal_ad_tpu_torch.models.resnet3d import (DEPTH_BLOCKS, ResNet3D,
 from multimodal_ad_tpu_torch.utils.torch_weights import (
     HEAD_NAMES, load_medicalnet_weights, resnet3d_name_map,
     state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 
 def random_flax_variables(model, shape, seed):

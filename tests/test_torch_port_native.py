@@ -18,6 +18,9 @@ import pytest
 from multimodal_ad_tpu_torch.data import pipeline
 from multimodal_ad_tpu_torch.data.adni import ADNIManifest
 from multimodal_ad_tpu_torch.utils import native_loader, nifti
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _bits(a):

@@ -22,6 +22,9 @@ from multimodal_ad_tpu.ops import normalize as jnorm
 from multimodal_ad_tpu_torch.data import device_cache as tdc
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg
 from multimodal_ad_tpu_torch.ops import normalize as tnorm
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_ULP = 2.0 ** -8
 OUT_DTYPES = [(jnp.float32, torch.float32, 1e-6),

@@ -29,6 +29,9 @@ from multimodal_ad_tpu_torch.tabular.meta_train import MetaTrainer
 from multimodal_ad_tpu_torch.utils.torch_weights import (icl_flax_from_state_dict,
                                                          icl_state_dict_from_flax,
                                                          reg_icl_state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 SMALL = dict(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=16)
 J_TINY = jicl.ICLConfig(max_classes=4, max_context=64, **SMALL)

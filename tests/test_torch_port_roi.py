@@ -19,6 +19,9 @@ from multimodal_ad_tpu.data.synthetic import make_atlas as jax_make_atlas
 from multimodal_ad_tpu.ops.roi_pool import roi_counts as jax_roi_counts
 from multimodal_ad_tpu.ops.roi_pool import roi_pool_pallas, roi_pool_xla
 from multimodal_ad_tpu_torch.ops import roi_pool as trp
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-4, 1e-5
 

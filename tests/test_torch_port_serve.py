@@ -24,6 +24,9 @@ from multimodal_ad_tpu_torch.serve import EnsemblePredictor, evaluate_records
 from multimodal_ad_tpu_torch.train import checkpoint as ckpt
 from multimodal_ad_tpu_torch.utils.nifti import save as nifti_save
 from multimodal_ad_tpu_torch.utils.torch_weights import state_dict_from_flax
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPE = (16, 20, 16)
 

@@ -1,0 +1,81 @@
+"""Support shared by the port's test files: `cap_torch_threads`, which each
+of them calls at import, and the `default_torch_threads` fixture.
+
+pytest-xdist runs several workers on the box's cores, and torch's intra-op
+pool defaults to one thread a core in every worker. Six workers then run
+six pools of all the cores: the pools' threads wait on each other at every
+parallel region of the small ops these tests run, and a test that takes
+seconds alone takes minutes (the ICL estimators' meta-training test: 5 s
+alone, 316 s in the suite). Each worker keeps its share of the cores.
+
+The thread count also sets how torch's CPU reductions split their sums. A
+few tests hold float32 statistics of large tensors (BatchNorm moments,
+three train steps) to the JAX package's at a bound met with torch's
+default split, not with one thread's sequential sums; they take
+`default_torch_threads`, which restores the default for their duration."""
+
+import contextlib
+import os
+
+import pytest
+import torch
+
+#: torch's intra-op threads before any cap (the module is imported first)
+DEFAULT_THREADS = torch.get_num_threads()
+
+
+def worker_count() -> int:
+    """The xdist workers of this run (1 outside xdist)."""
+    return max(1, int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
+
+def thread_cap(cpus: int | None = None, workers: int | None = None) -> int:
+    """``max(1, cpus // workers)``: this worker's share of the cores."""
+    cpus = cpus if cpus is not None else len(os.sched_getaffinity(0))
+    workers = workers if workers is not None else worker_count()
+    return max(1, cpus // workers)
+
+
+def cap_torch_threads() -> int:
+    """Lower torch's intra-op threads to this worker's share of the cores
+    (never raise them); returns the count in force."""
+    cap = thread_cap()
+    if torch.get_num_threads() > cap:
+        torch.set_num_threads(cap)
+    return torch.get_num_threads()
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch's default intra-op thread count inside the block."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture
+def default_torch_threads():
+    with default_threads():
+        yield
+
+
+@pytest.mark.parametrize("cpus,workers,cap",
+                         [(8, 6, 1), (8, 1, 8), (8, 2, 4), (2, 6, 1), (1, 1, 1)])
+def test_thread_cap(cpus, workers, cap):
+    assert thread_cap(cpus, workers) == cap
+
+
+def test_cap_torch_threads_never_raises_the_count():
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        assert cap_torch_threads() == 1
+    finally:
+        torch.set_num_threads(before)
+    assert cap_torch_threads() == min(before, thread_cap())
+    with default_threads():
+        assert torch.get_num_threads() == DEFAULT_THREADS
+    assert torch.get_num_threads() == min(before, thread_cap())

@@ -24,6 +24,9 @@ from multimodal_ad_tpu_torch.tabular import embedding as temb
 from multimodal_ad_tpu_torch.tabular import pipeline as tpipe
 from multimodal_ad_tpu_torch.tabular.icl import ICLClassifier
 from multimodal_ad_tpu_torch.tabular.regression import ICLRegressor
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 REG_TOL = 1e-4  # of the target's spread (max - min)
 EMB_TOL = 1e-4

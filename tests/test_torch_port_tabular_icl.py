@@ -25,6 +25,9 @@ from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state
 from multimodal_ad_tpu_torch.tabular.regression import ICLRegressor
 from multimodal_ad_tpu_torch.utils.torch_weights import (icl_state_dict_from_flax,
                                                          reg_icl_state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 TINY = dict(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_features=12)
 NET_TOL = 1e-5  # fp32, the same products in another summation order

@@ -27,6 +27,9 @@ from multimodal_ad_tpu_torch.data.synthetic import make_table
 from multimodal_ad_tpu_torch.tabular import estimator as est
 from multimodal_ad_tpu_torch.tabular import utils as tutils
 from multimodal_ad_tpu_torch.tabular.flax_msgpack import read_state, tree_leaves, unpackb
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = {"icl_default": (107, 4_892_426), "icl_embedder": (107, 4_892_426),

@@ -40,6 +40,9 @@ from multimodal_ad_tpu_torch.ops import augment as taug
 from multimodal_ad_tpu_torch.train import loop as tloop
 from multimodal_ad_tpu_torch.utils.torch_weights import (load_optax_adam_state,
                                                          state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads, default_torch_threads  # noqa: F401
+
+cap_torch_threads()
 
 SHAPE = (16, 20, 16, 1)
 LR = 1e-3
@@ -205,6 +208,7 @@ def _assert_weights_close(tstate, jstate, shortcut):
     assert float((d <= 1e-5).float().mean()) >= 0.999
 
 
+@pytest.mark.usefixtures("default_torch_threads")
 @pytest.mark.parametrize("shortcut", ["A", "B"])
 def test_three_train_steps_match_jax(shortcut):
     _, step, evaluate = _jax_model(shortcut)

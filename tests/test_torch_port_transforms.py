@@ -27,6 +27,9 @@ from multimodal_ad_tpu_torch.data import transforms as ttf
 from multimodal_ad_tpu_torch.data.adni import ADNIManifest
 from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
 from multimodal_ad_tpu_torch.train.cv import _device_batches
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 # (epoch, sample_idx) of seed 7 by what the draws take
 PAIRS = {

@@ -19,6 +19,9 @@ from multimodal_ad_tpu.models.unet3d import unet_forward_with_features
 from multimodal_ad_tpu_torch.models.unet3d import UNet3D, _pad_to_multiple
 from multimodal_ad_tpu_torch.utils.torch_weights import (
     unet3d_name_map, unet3d_state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads
+
+cap_torch_threads()
 
 NARROW = dict(level_channels=(8, 16, 32), bottleneck_channel=64)
 SMALL_SHAPE = (20, 24, 20)  # tests/conftest.py's volume shape

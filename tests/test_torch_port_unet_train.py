@@ -51,6 +51,9 @@ from multimodal_ad_tpu_torch.train import single_split as tss
 from multimodal_ad_tpu_torch.utils.torch_weights import (
     unet3d_classifier_name_map, unet3d_classifier_state_dict_from_flax,
     unet3d_state_dict_from_flax)
+from test_torch_port_support import cap_torch_threads, default_torch_threads  # noqa: F401
+
+cap_torch_threads()
 
 LR = 1e-3
 WD = 1e-4
@@ -121,6 +124,7 @@ def test_classifier_defaults_follow_flax():
         a(torch.rand((1, 16, 16, 16, 2)))
 
 
+@pytest.mark.usefixtures("default_torch_threads")
 def test_unet3d_train_mode_batchnorm_statistics_match_flax():
     """Repair: UNet3D's BatchNorms are FlaxBatchNorm3d, so one train-mode
     forward leaves flax's (biased) running statistics."""
@@ -308,6 +312,7 @@ def test_three_adamw_updates_on_the_jax_gradients():
     assert tstate.optimizer.param_groups[0]["lr"] == pytest.approx(0.25 * LR, rel=1e-6)
 
 
+@pytest.mark.usefixtures("default_torch_threads")
 def test_autoencoder_step_on_the_jax_mask_matches():
     shape = (12, 12, 12)
     jm = JaxUNet3D(dtype=jnp.float32, **NARROW)

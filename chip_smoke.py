@@ -203,7 +203,34 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    fit and predict times, accuracy, the host's codebook equal and its
    probabilities within 1e-4; `TunedICLRegressor(n_trials=4)` on phase 15
    (d)'s target: time and R²;
-19. one JSON line {"kernels": [...]} and, last, the device line.
+19. data parallelism over a device mesh (parallel/mesh.py), ResNet-18 at
+   91x109x91, global batch 8: (a) at W = 1 on NCCL in this process, one
+   fp32 DDP train step against the plain step on the same weights and the
+   same K1-gathered batch (loss rel 1e-6; Adam's first moments within 1e-5
+   of their norm, the parameters by the element rule of `adam_rule`), both
+   steps' times and DDP's overhead (CUDA events, median of 14), the bf16
+   step's too beside phase 8's rate; (d) `EnsemblePredictor(mesh=)` over
+   phase 4's five folds, bf16 and then int8 (K3): probabilities bit-equal
+   to the mesh-less predictor's; (e) `extract_unet_features(mesh=)` over
+   phase 7's first 8 test subjects: the CSV rows byte-identical to phase
+   7's; then two gloo ranks, both on the card (spawned): (b) the fp32 step
+   at 4 rows a rank, a full and a ragged batch (5 real rows of 8), against
+   the one-process step at 8 rows (the same rule, the first moments within
+   `W2_U_BOUND` of their norm), both ranks' parameters and buffers equal,
+   each rank's K1 once on its 4 rows, the W = 2 step's time; (e) the same
+   extraction (rows and order as phase 7's, values within 1e-4, K1 and K2
+   once a rank); (d) the bf16 and int8 ensembles (5e-3, K3 19 x 5 a batch
+   a rank); (c) `python -m torch.distributed.run --standalone
+   --nproc_per_node=1 -m multimodal_ad_tpu_torch.cli.train_resnet3d
+   --device cuda` on phase 8's data, 2 folds x 1 epoch: exit 0, the config
+   printed once, the CSV and checkpoints, K1 launches (read from the
+   launched process, `MAD_LAUNCH_COUNTS_DIR`) = batches, the rate beside
+   phase 8's CLI run; (f) `entry.dryrun_multichip(2)` (two gloo ranks on
+   the card), `entry.entry()`'s forward and the six port examples on the
+   card;
+20. one JSON line {"kernels": [...]} (with each kernel's launches in phase
+   19 by rank and run, `launches_data_parallel`) and, last, the device
+   line.
 
 Every streamed path of phases 7, 9 (cli.train_unet3d), 10, 13 and 17 prints
 VolumeBatcher's decodes by reader and fails unless they are all native;
@@ -2630,6 +2657,457 @@ def meta_estimators_phase(torch, dev, card, work):
     return out
 
 
+def adam_rule(torch, a, b, lr0, u_bound=1e-5):
+    """`a` against `b`, two TrainStates after one step from the same weights
+    (the rule of tests/test_torch_port_fusion.py::test_one_train_step_
+    matches_jax): Adam's first update moves an element by lr u / (|u| +
+    eps), u the clipped gradient plus wd p; the first moments / (1 - b1)
+    must agree within `u_bound` of u's global norm; where |u| exceeds ten
+    times both the disagreement and eps, the parameters within lr / 50,
+    elsewhere within 2 lr, at most 10 % of the elements. Returns the
+    numbers."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    ua = {k: a.optimizer.state[p]["exp_avg"].double() / 0.1 for k, p in pa.items()}
+    ub = {k: b.optimizer.state[p]["exp_avg"].double() / 0.1 for k, p in pb.items()}
+    u_norm = math.sqrt(sum(float((v ** 2).sum()) for v in ub.values()))
+    du = max(float((ua[k] - ub[k]).abs().max()) for k in ub)
+    big_max = loose_max = stats_max = 0.0
+    n_loose = n_all = 0
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k, ref in sb.items():
+        if "num_batches" in k:
+            continue
+        d = (sa[k].double() - ref.double()).abs()
+        if k not in ub:
+            stats_max = max(stats_max, float(d.max()))
+            continue
+        big = ub[k].abs() > 10 * torch.clamp((ua[k] - ub[k]).abs(), min=1e-8)
+        if big.any():
+            big_max = max(big_max, float(d[big].max()))
+        if (~big).any():
+            loose_max = max(loose_max, float(d[~big].max()))
+        n_loose += int((~big).sum())
+        n_all += d.numel()
+    out = {"du": du, "u_norm": u_norm, "du_rel": du / u_norm, "big_max_over_lr": big_max / lr0,
+           "loose_max_over_lr": loose_max / lr0, "loose_share": n_loose / n_all,
+           "bn_stats_max": stats_max}
+    out["u_bound"] = u_bound
+    out["ok"] = bool(du <= u_bound * u_norm and big_max <= lr0 / 50 and loose_max <= 2 * lr0
+                     and n_loose <= 0.1 * n_all and stats_max <= 1e-4)
+    return out
+
+
+# Phase 19 (b)'s bound on the first moments of a W = 2 step against one
+# process's, as a share of their norm. At full width the fp32 step itself is
+# 1.2e-4 of the norm from a float64 step (the stem's weight gradient sums
+# ~3.6 M products an element; scripts/dp_step_precision.py), and W = 2
+# against one process measured 7.1e-5 to 8.5e-5: the CPU tests' 1e-5 holds
+# only at their small sizes, so the card holds the W = 2 step within 8
+# times the fp32 step's own error.
+W2_U_BOUND = 1e-3
+
+
+def _dp_fresh_state(torch, dev, sd, mesh):
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.train import loop
+
+    model = generate_model(model_depth=18, dropout_rate=0.0, compute_dtype=torch.float32)
+    model.load_state_dict(sd)
+    return loop.create_train_state(model.to(dev), loop.make_epoch_schedule(1e-3, 20), mesh=mesh)
+
+
+def _timed_steps(torch, state, batch, cw, n=14, warmup=2):
+    """Median ms of `n` train steps on one batch (CUDA events, after
+    `warmup`)."""
+    from multimodal_ad_tpu_torch.train import loop
+
+    times = []
+    for i in range(warmup + n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loop.train_step(state, batch, cw)
+        b.record()
+        if i >= warmup:
+            times.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in times)
+
+
+def _dp_rank(rank, world, store, args_path, out_dir):
+    """One of phase 19's two gloo ranks, both on cuda:0: (b) the fp32 DP
+    step, full and ragged, against the one-process step (rank 0); (e) U-Net
+    extraction; (d) the int8 ensemble. Saves its results."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
+    from multimodal_ad_tpu_torch.eval.features import extract_unet_features
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
+    from multimodal_ad_tpu_torch.ops import roi_pool as rp
+    from multimodal_ad_tpu_torch.parallel import mesh as pmesh
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.train import loop
+
+    dev = pmesh.init_distributed(backend="gloo", device="cuda:0",
+                                 init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        a = torch.load(args_path, weights_only=False)
+        mesh = pmesh.make_mesh()
+        sd = torch.load(a["sd"], weights_only=False)
+        vols8, labels8 = np.load(a["vols8"]), a["labels8"]
+        cw = torch.tensor([0.5, 0.5], device=dev)
+        lr0 = loop.make_epoch_schedule(1e-3, 20)(0)
+        res = {"rank": rank, "mesh": pmesh.data_size(mesh)}
+        ds = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32, mesh=mesh)
+        for name, idx in (("full", np.arange(BATCH)), ("ragged", np.arange(5))):
+            fg.gather_normalize.launches = 0
+            batch = next(iter(DeviceEpochIterator(ds, idx, BATCH)))  # this rank's rows, K1
+            torch.cuda.synchronize()
+            r = {"k1": fg.gather_normalize.launches, "rows": int(batch["image"].shape[0]),
+                 "real": float(batch["mask"].sum())}
+            state = _dp_fresh_state(torch, dev, sd, mesh)
+            loss, _ = loop.train_step(state, batch, cw)
+            r["loss"] = float(loss)
+            r["param_sums"] = [float(p.detach().double().sum())
+                               for p in state.model.parameters()]
+            r["buffer_sums"] = [float(b.double().sum()) for b in state.model.buffers()]
+            if rank == 0:  # the one-process step at the global batch
+                ds1 = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32)
+                ref_state = _dp_fresh_state(torch, dev, sd, None)
+                ref_loss, _ = loop.train_step(ref_state, next(iter(
+                    DeviceEpochIterator(ds1, idx, BATCH))), cw)
+                r["ref_loss"] = float(ref_loss)
+                r["check"] = adam_rule(torch, state, ref_state, lr0, W2_U_BOUND)
+                del ref_state, ds1
+            if name == "full":
+                r["step_ms"] = _timed_steps(torch, state, batch, cw, n=6, warmup=1)
+            res[name] = r
+            del state
+            torch.cuda.empty_cache()
+
+        fg.gather_normalize.launches = rp.roi_pool.launches = 0
+        extract_unet_features(a["records8"], a["atlas_labels"], a["roi_names"], a["out_w2"],
+                              batch_size=BATCH, num_threads=a["threads"], seed=a["seed"],
+                              device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        res["extraction"] = {"k1": fg.gather_normalize.launches, "k2": rp.roi_pool.launches}
+        torch.cuda.empty_cache()
+
+        pred = EnsemblePredictor.from_checkpoint_dir(a["ckpt_dir"], batch_size=BATCH,
+                                                     device=dev, mesh=mesh)
+        vols = np.load(a["vols"])
+        fg.gather_normalize.launches = 0
+        bf16 = pred.predict_proba(vols)
+        k1 = fg.gather_normalize.launches
+        pred.quantize_int8(vols[:4])
+        fg.gather_normalize.launches = k3.conv_i8.launches = 0
+        q8 = pred.predict_proba(vols)
+        torch.cuda.synchronize()
+        res["predictor"] = {"bf16": bf16, "int8": q8, "k1_bf16": k1,
+                            "k1_int8": fg.gather_normalize.launches,
+                            "k3": k3.conv_i8.launches}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(torch, dev, card, work, ctx):
+    """Phase 19: the mesh path at full width (see the module docstring)."""
+    import importlib
+    import re
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from multimodal_ad_tpu_torch import examples
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.entry import dryrun_multichip, entry
+    from multimodal_ad_tpu_torch.eval.features import extract_unet_features
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
+    from multimodal_ad_tpu_torch.ops import roi_pool as rp
+    from multimodal_ad_tpu_torch.parallel import mesh as pmesh
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.train import loop
+
+    t_phase = time.time()
+    log(f"== 19. data parallel: ResNet-18 fp32 at 91x109x91, global batch {BATCH}; "
+        "W = 1 on NCCL, W = 2 on gloo with both ranks on cuda:0")
+    dpw = os.path.join(work, "dp")
+    os.makedirs(dpw)
+    out = {}
+    launches = {"K1": {}, "K2": {}, "K3": {}}
+    tr_val = ctx["tr_val"]
+    vols8 = np.stack([load_volume(r["MRI"]) for r in tr_val[:BATCH]])[..., None]
+    labels8 = np.array([r["label"] for r in tr_val[:BATCH]])
+    sd = generate_model(model_depth=18, dropout_rate=0.0, compute_dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(SEED + 19)).state_dict()
+    cw = torch.tensor([0.5, 0.5], device=dev)
+    lr0 = loop.make_epoch_schedule(1e-3, 20)(0)
+    defaults = Config()
+    records8 = ctx["ext_records"][:BATCH]
+
+    # ---- (a), (d), (e) at W = 1 on NCCL, in this process -----------------
+    pmesh.init_distributed(device="cuda", init_method=f"file://{dpw}/store_w1",
+                           rank=0, world_size=1)
+    check(dist.get_backend() == "nccl", f"W = 1 runs {dist.get_backend()}, not nccl")
+    mesh = pmesh.make_mesh()
+    ds = DeviceDataset(vols8, labels8, store_dtype=np.float32, mesh=mesh)
+    fg.gather_normalize.launches = 0
+    batch = next(iter(DeviceEpochIterator(ds, np.arange(BATCH), BATCH)))
+    torch.cuda.synchronize()
+    launches["K1"]["w1_nccl_step"] = fg.gather_normalize.launches
+    plain, dp = (_dp_fresh_state(torch, dev, sd, m) for m in (None, mesh))
+    l_plain = float(loop.train_step(plain, batch, cw)[0])
+    l_dp = float(loop.train_step(dp, batch, cw)[0])
+    a_check = adam_rule(torch, dp, plain, lr0)
+    ms_plain = _timed_steps(torch, plain, batch, cw)
+    ms_dp = _timed_steps(torch, dp, batch, cw)
+    out["w1"] = dict(a_check, loss_dp=l_dp, loss_plain=l_plain, step_ms_plain=ms_plain,
+                     step_ms_dp=ms_dp, ddp_overhead_ms=ms_dp - ms_plain,
+                     ddp_overhead_pct=100 * (ms_dp - ms_plain) / ms_plain,
+                     vols_per_s_dp=BATCH / (ms_dp / 1e3))
+    log(f"(a) W = 1 NCCL DP step against the plain step, same weights and batch: loss "
+        f"{l_dp:.6f} vs {l_plain:.6f}; first moments max |du| {a_check['du']:.3g} "
+        f"({a_check['du_rel']:.3g} of |u| {a_check['u_norm']:.4g}; bound 1e-5); parameters "
+        f"max |d| {a_check['big_max_over_lr']:.3g} lr where |u| is large (bound 0.02), "
+        f"{a_check['loose_max_over_lr']:.3g} lr elsewhere (bound 2, "
+        f"{100 * a_check['loose_share']:.3f} % of them); BN statistics {a_check['bn_stats_max']:.3g}")
+    log(f"    step ms (CUDA events, median of 14 after 2): plain {ms_plain:.2f}, DDP "
+        f"{ms_dp:.2f}: overhead {ms_dp - ms_plain:.2f} ms "
+        f"({out['w1']['ddp_overhead_pct']:.1f} %) on {card}")
+    check(a_check["ok"] and abs(l_dp - l_plain) <= 1e-6 * abs(l_plain),
+          f"W = 1 DP step differs from the plain step: {a_check}, {l_dp} vs {l_plain}")
+    del plain, dp
+    # the flagship's training precision (bf16 autocast), as phase 8 times it
+    bf = {}
+    for m, tag in ((None, "plain"), (mesh, "dp")):
+        model = generate_model(model_depth=18, compute_dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(SEED + 12)).to(dev)
+        st = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20),
+                                     dropout_seed=SEED + 12, mesh=m)
+        bf[tag] = _timed_steps(torch, st, batch, cw)
+        del st, model
+    out["w1"].update(bf16_step_ms_plain=bf["plain"], bf16_step_ms_dp=bf["dp"],
+                     bf16_vols_per_s_dp=BATCH / (bf["dp"] / 1e3))
+    log(f"    bf16 autocast: plain {bf['plain']:.2f} ms, DDP {bf['dp']:.2f} ms a step: "
+        f"{BATCH / (bf['dp'] / 1e3):.2f} vols/s at W = 1 against phase 8's "
+        f"{ctx['train_rate']:.2f} (its resident augmented step) in this call")
+    del ds, batch
+    torch.cuda.empty_cache()
+
+    vols = ctx["vols"]
+    res_d = {}
+    for m, tag in ((None, "plain"), (mesh, "mesh")):
+        pred = EnsemblePredictor.from_checkpoint_dir(ctx["ckpt_dir"], batch_size=BATCH, mesh=m)
+        fg.gather_normalize.launches = 0
+        bf16 = pred.predict_proba(vols)
+        k1_bf16 = fg.gather_normalize.launches
+        pred.quantize_int8(vols[:4])
+        fg.gather_normalize.launches = k3.conv_i8.launches = 0
+        q8 = pred.predict_proba(vols)
+        torch.cuda.synchronize()
+        res_d[tag] = (bf16, q8, k1_bf16, fg.gather_normalize.launches, k3.conv_i8.launches)
+        del pred
+    launches["K1"]["w1_nccl_serving"] = res_d["mesh"][2] + res_d["mesh"][3]
+    launches["K3"]["w1_nccl_serving"] = res_d["mesh"][4]
+    same_bf16 = bool(np.array_equal(res_d["mesh"][0], res_d["plain"][0]))
+    same_int8 = bool(np.array_equal(res_d["mesh"][1], res_d["plain"][1]))
+    log(f"(d) EnsemblePredictor(mesh=) W = 1, {len(vols)} volumes, 5 folds: bf16 bit-equal "
+        f"{same_bf16}, int8 bit-equal {same_int8}; K1 {res_d['mesh'][2]} + "
+        f"{res_d['mesh'][3]}, K3 {res_d['mesh'][4]} launches")
+    check(same_bf16 and same_int8, "the W = 1 mesh predictor differs from the plain one")
+    torch.cuda.empty_cache()
+
+    out_w1 = os.path.join(dpw, "ext_w1")
+    fg.gather_normalize.launches = rp.roi_pool.launches = 0
+    extract_unet_features(records8, ctx["atlas_labels"], ctx["roi_names"], out_w1,
+                          batch_size=BATCH, num_threads=defaults.loader_threads,
+                          seed=defaults.seed, mesh=mesh)
+    torch.cuda.synchronize()
+    launches["K1"]["w1_nccl_extraction"] = fg.gather_normalize.launches
+    launches["K2"]["w1_nccl_extraction"] = rp.roi_pool.launches
+
+    def head_lines(path, n):
+        with open(path, "rb") as f:
+            return [f.readline() for _ in range(n)]
+
+    same_csv = all(head_lines(os.path.join(out_w1, name), 1 + BATCH)
+                   == head_lines(os.path.join(ctx["ext_out1"], name), 1 + BATCH)
+                   for name in ("features.csv", "roi_features.csv"))
+    log(f"(e) extract_unet_features(mesh=) W = 1 over phase 7's first {BATCH} test subjects: "
+        f"CSVs byte-identical to phase 7's rows {same_csv}; K1 "
+        f"{launches['K1']['w1_nccl_extraction']}, K2 {launches['K2']['w1_nccl_extraction']}")
+    check(same_csv, "the W = 1 mesh extraction wrote other bytes than phase 7")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (b), (d), (e) at W = 2 on gloo, both ranks on cuda:0 -------------
+    args = {"sd": os.path.join(dpw, "sd.pt"), "vols8": os.path.join(dpw, "vols8.npy"),
+            "labels8": labels8, "vols": os.path.join(dpw, "vols.npy"),
+            "ckpt_dir": ctx["ckpt_dir"], "records8": records8,
+            "atlas_labels": ctx["atlas_labels"], "roi_names": ctx["roi_names"],
+            "out_w2": os.path.join(dpw, "ext_w2"), "threads": defaults.loader_threads,
+            "seed": defaults.seed}
+    torch.save(sd, args["sd"])
+    np.save(args["vols8"], vols8)
+    np.save(args["vols"], vols)
+    torch.save(args, os.path.join(dpw, "args.pt"))
+    t0 = time.time()
+    mp.start_processes(_dp_rank, args=(2, os.path.join(dpw, "store_w2"),
+                                       os.path.join(dpw, "args.pt"), dpw),
+                       nprocs=2, join=True, start_method="spawn")
+    w2_s = time.time() - t0
+    ranks = [torch.load(os.path.join(dpw, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    out["w2"] = {"seconds": w2_s}
+    for name in ("full", "ragged"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        c = r0["check"]
+        equal_ranks = (r0["param_sums"] == r1["param_sums"]
+                       and r0["buffer_sums"] == r1["buffer_sums"])
+        out["w2"][name] = dict(c, loss=r0["loss"], ref_loss=r0["ref_loss"],
+                               ranks_equal=equal_ranks,
+                               k1=[r0["k1"], r1["k1"]], rows=[r0["rows"], r1["rows"]],
+                               real=[r0["real"], r1["real"]])
+        log(f"(b) W = 2 gloo, {name} batch (real rows by rank {r0['real']:.0f} + "
+            f"{r1['real']:.0f}): loss {r0['loss']:.6f} vs one process {r0['ref_loss']:.6f}; "
+            f"|du| {c['du_rel']:.3g} of |u| (bound {W2_U_BOUND:g}); parameters "
+            f"{c['big_max_over_lr']:.3g} "
+            f"lr / {c['loose_max_over_lr']:.3g} lr ({100 * c['loose_share']:.3f} % loose); BN "
+            f"statistics {c['bn_stats_max']:.3g}; ranks' parameters and buffers equal "
+            f"{equal_ranks}; K1 launches by rank {r0['k1']}, {r1['k1']} on "
+            f"{r0['rows']} + {r1['rows']} rows")
+        check(c["ok"] and abs(r0["loss"] - r0["ref_loss"]) <= 1e-5 * abs(r0["ref_loss"]),
+              f"W = 2 {name} step differs from one process: {c}")
+        check(equal_ranks, f"the two ranks' models differ after the {name} step")
+        check(r0["k1"] == r1["k1"] == 1 and r0["rows"] == r1["rows"] == BATCH // 2,
+              f"K1 per rank {r0['k1']}, {r1['k1']} on {r0['rows']}, {r1['rows']} rows")
+        for r in (0, 1):
+            launches["K1"][f"w2_gloo_rank{r}_step_{name}"] = ranks[r][name]["k1"]
+    out["w2"]["step_ms"] = ranks[0]["full"]["step_ms"]
+    log(f"    W = 2 gloo step (both ranks on one card, 4 rows each): "
+        f"{out['w2']['step_ms']:.1f} ms (CUDA events, median of 6), against "
+        f"{ms_plain:.2f} ms for one process at 8 rows")
+
+    ext2 = os.path.join(dpw, "ext_w2")
+    worst, same_rows = 0.0, True
+    for name in ("features.csv", "roi_features.csv"):
+        with open(os.path.join(ext2, name)) as f2, \
+                open(os.path.join(ctx["ext_out1"], name)) as f1:
+            r2, r1_ = csv.reader(f2), csv.reader(f1)
+            for i, (a2, a1) in enumerate(zip(r2, r1_)):
+                if i > BATCH:
+                    break
+                if i == 0 or a2[0] != a1[0]:
+                    same_rows &= a2 == a1 if i == 0 else False
+                    continue
+                worst = max(worst, float(np.abs(np.asarray(a2[1:], np.float64)
+                                                - np.asarray(a1[1:], np.float64)).max()))
+    for r in (0, 1):
+        launches["K1"][f"w2_gloo_rank{r}_extraction"] = ranks[r]["extraction"]["k1"]
+        launches["K2"][f"w2_gloo_rank{r}_extraction"] = ranks[r]["extraction"]["k2"]
+    out["w2"]["extraction_max_abs"] = worst
+    log(f"(e) W = 2 gloo extraction: same header, rows and order as phase 7 {same_rows}, "
+        f"max |d| {worst:.3g} (bound 1e-4); K1 / K2 by rank "
+        f"{[ranks[r]['extraction']['k1'] for r in (0, 1)]} / "
+        f"{[ranks[r]['extraction']['k2'] for r in (0, 1)]}")
+    check(same_rows and worst <= 1e-4, f"W = 2 extraction rows {same_rows}, max |d| {worst}")
+    check(all(ranks[r]["extraction"]["k1"] == 1 and ranks[r]["extraction"]["k2"] == 1
+              for r in (0, 1)), "each rank must run K1 and K2 once on its rows")
+
+    p2 = [ranks[r]["predictor"] for r in (0, 1)]
+    d_bf16 = float(np.abs(p2[0]["bf16"] - res_d["plain"][0]).max())
+    d_int8 = float(np.abs(p2[0]["int8"] - res_d["plain"][1]).max())
+    ranks_same = all(np.array_equal(p2[0][k], p2[1][k]) for k in ("bf16", "int8"))
+    for r in (0, 1):
+        launches["K1"][f"w2_gloo_rank{r}_serving"] = p2[r]["k1_bf16"] + p2[r]["k1_int8"]
+        launches["K3"][f"w2_gloo_rank{r}_serving"] = p2[r]["k3"]
+    out["w2"].update(serving_bf16_max_abs=d_bf16, serving_int8_max_abs=d_int8)
+    log(f"(d) W = 2 gloo EnsemblePredictor: bf16 max |dprob| {d_bf16:.3g}, int8 "
+        f"{d_int8:.3g} (bound 5e-3 each: 4-row batches may take other cuDNN algorithms); "
+        f"both ranks return the same array {ranks_same}; K3 by rank {[p['k3'] for p in p2]}")
+    check(ranks_same and d_bf16 <= 5e-3 and d_int8 <= 5e-3,
+          f"W = 2 serving: ranks equal {ranks_same}, {d_bf16}, {d_int8}")
+    check(all(p["k3"] == 19 * N_FOLDS * 2 for p in p2),
+          f"int8 serving at W = 2 ran K3 {[p['k3'] for p in p2]} times a rank")
+    log(f"    the W = 2 spawn took {w2_s:.1f} s (two processes, both on {card})")
+
+    # ---- (c) cli.train_resnet3d under torch.distributed.run ----------------
+    cdir = os.path.join(dpw, "launch_counts")
+    ckpt_c = os.path.join(dpw, "train_ckpt")
+    argv = [f"label_file={ctx['train_csv']}", f"mri_dir={ctx['train_mri']}", "model_depth=18",
+            "resnet_shortcut=B", "compute_dtype=bfloat16", f"batch_size={BATCH}",
+            "hbm_cache=true", "augment=true", "precise_bn=true", "normalizer=scale_intensity",
+            "n_splits=2", "num_epochs=1", "lr=1e-3", f"checkpoint_dir={ckpt_c}"]
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "multimodal_ad_tpu_torch.cli.train_resnet3d", "--device", "cuda"] + argv,
+        cwd=ROOT, env=dict(os.environ, MAD_LAUNCH_COUNTS_DIR=cdir), capture_output=True,
+        text=True, timeout=600)
+    wall_c = time.time() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"torch.distributed.run cli.train_resnet3d exited {proc.returncode}")
+    with open(os.path.join(cdir, "launches-rank0.json")) as f:
+        counts_c = json.load(f)
+    per_epoch = 3 * (-(-(len(tr_val) // 2) // BATCH))
+    expect = 2 * per_epoch + 2 * (-(-len(ctx["test_recs"]) // BATCH))
+    epoch_s = [float(t) for t in re.findall(r"Fold\d Ep\d+ .* time=([0-9.]+)s", proc.stdout)]
+    with open(os.path.join(ckpt_c, "cv_results.csv")) as f:
+        rows_c = list(csv.reader(f))
+    launches["K1"]["w1_nccl_torchrun_cli"] = counts_c["K1"]
+    out["cli"] = {"wall_s": wall_c, "k1": counts_c["K1"], "expected_k1": expect,
+                  "epoch_s": epoch_s,
+                  "cli_vols_per_s": counts_c["K1"] * BATCH / wall_c,
+                  "phase8_cli_vols_per_s": ctx["train_launches"] * BATCH / ctx["train_wall"]}
+    log(f"(c) torch.distributed.run --nproc_per_node=1 cli.train_resnet3d (NCCL, 2 folds x 1 "
+        f"epoch): {wall_c:.1f} s with process start; K1 {counts_c['K1']} (expected {expect}); "
+        f"{len(rows_c) - 1} CSV rows; epoch times as printed {epoch_s} s (fold 1 tunes cuDNN "
+        f"in the new process); {out['cli']['cli_vols_per_s']:.2f} gathered vols/s over the "
+        f"launched run against {out['cli']['phase8_cli_vols_per_s']:.2f} over phase 8's "
+        f"in-process CLI run (2 epochs, this call)")
+    check(counts_c["K1"] == expect, f"the launched CLI ran K1 {counts_c['K1']} times")
+    check(len(rows_c) == 3 and all(len(r) == 19 for r in rows_c),
+          f"cv_results.csv of the launched run is {len(rows_c)} rows")
+    check(proc.stdout.count("Configuration Parameters:") == 1, "the config printed twice")
+    for k in (1, 2):
+        check(os.path.isfile(os.path.join(ckpt_c, f"best_fold{k}", "model.pt")),
+              f"best_fold{k} of the launched run missing")
+
+    # ---- (f) the dry run, the flagship entry, the examples -----------------
+    t0 = time.time()
+    loss = dryrun_multichip(2)
+    out["dryrun"] = {"loss": loss, "seconds": time.time() - t0}
+    check(np.isfinite(loss), f"dryrun_multichip(2) loss {loss}")
+    fwd, (model, x) = entry()
+    logits = fwd(model, x)
+    check(tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all()),
+          f"entry() forward gave {tuple(logits.shape)}")
+    del model, x, logits
+    ex_s = {}
+    for name in examples.EXAMPLES:
+        t0 = time.time()
+        result = importlib.import_module(f"multimodal_ad_tpu_torch.examples.{name}").main(
+            device="cuda")
+        ex_s[name] = time.time() - t0
+        check(result is not None, f"example {name} returned nothing")
+    out["examples_s"] = ex_s
+    log(f"(f) dryrun_multichip(2) loss {loss:.4f} in {out['dryrun']['seconds']:.1f} s; entry() "
+        f"(4, 2) logits; examples on the card (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ex_s.items()))
+    out["launches_data_parallel"] = launches
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def _timed_ms(fn):
     t0 = time.perf_counter()
     fn()
@@ -3389,9 +3867,17 @@ def main() -> int:
 
     # ---- 18. the tabular meta-estimators --------------------------------------
     meta_est = meta_estimators_phase(torch, dev, card, work)
+
+    # ---- 19. data parallel over a device mesh ---------------------------------
+    dp = data_parallel_phase(torch, dev, card, work, {
+        "tr_val": tr_val, "test_recs": test_recs, "train_csv": train_csv,
+        "train_mri": train_mri, "train_rate": train_rate, "train_wall": train_wall,
+        "train_launches": train_launches, "ckpt_dir": ckpt_dir, "vols": vols,
+        "ext_records": ext_records, "atlas_labels": labels, "roi_names": roi_names,
+        "ext_out1": os.path.join(work, "out1")})
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 19. result ----------------------------------------------------
+    # ---- 20. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -3429,6 +3915,7 @@ def main() -> int:
         "empty_launch_ms": empty_ms,
         "kernels_per_call": k1_kernels,
         "mode_by_shape": k1_modes,
+        "launches_data_parallel": dp["launches_data_parallel"]["K1"],
         "design_pr": 3,
     }, {
         "name": "roi_pool",
@@ -3453,6 +3940,7 @@ def main() -> int:
         "tiles_2mm": ext_atlas.num_tiles,
         "ms_1mm_600_rois": k2_1mm_ms,
         "bound_ms_1mm_600_rois": k2_1mm_bound,
+        "launches_data_parallel": dp["launches_data_parallel"]["K2"],
         "design_pr": 3,
     }, {
         "name": "int8_conv",
@@ -3475,6 +3963,7 @@ def main() -> int:
         "in_volume_taps": k3_top["in_volume_taps"],
         "forward_19_convs": q8["k3_forward"],
         "per_shape": q8["k3_shapes"],
+        "launches_data_parallel": dp["launches_data_parallel"]["K3"],
         "design_pr": 7,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
@@ -3499,6 +3988,8 @@ def main() -> int:
                     "densenet": dense, "encoder": enc,
                     "mshyper_and_tools": tools, "tabular": tab,
                     "metatrain": meta, "fusion": fuse, "meta_estimators": meta_est,
+                    "data_parallel": {k: v for k, v in dp.items()
+                                      if k != "launches_data_parallel"},
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -14,19 +14,19 @@ from __future__ import annotations
 from ..data.adni import ADNIManifest
 from ..data.splits import stratified_test_split
 from ..train.cv import test_models
-from .common import base_parser, load_config
+from .common import add_device_args, base_parser, distributed, is_rank0, load_config
 
 
 def main(argv=None):
     p = base_parser(__doc__)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
     cfg = load_config(args)
     records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task,
-                           augment=False).data_dict
+                           augment=False, verbose=is_rank0()).data_dict
     _, test_data = stratified_test_split(records, cfg.split_ratio, cfg.seed)
-    return test_models(cfg, test_data, device=args.device)
+    with distributed(args, cfg) as (device, mesh):
+        return test_models(cfg, test_data, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

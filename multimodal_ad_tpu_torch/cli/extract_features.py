@@ -16,7 +16,7 @@ from ..data.adni import ADNIManifest
 from ..data.splits import stratified_test_split
 from ..eval.atlas import MNI152_2MM_SHAPE, compact_labels, load_atlas
 from ..eval.features import extract_unet_features
-from .common import base_parser, load_config
+from .common import add_device_args, base_parser, distributed, echo, is_rank0, load_config
 
 
 def main(argv=None):
@@ -34,26 +34,26 @@ def main(argv=None):
     p.add_argument("--out", default="output", help="output directory")
     p.add_argument("--reference-bug-compat", action="store_true",
                    help="emit ROI rows in the reference's transposed order")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
     cfg = load_config(args)
 
     records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task,
-                           augment=False).data_dict
+                           augment=False, verbose=is_rank0()).data_dict
     _, test_data = stratified_test_split(records, cfg.split_ratio, cfg.seed)
 
     target = MNI152_2MM_SHAPE if args.resample_2mm else None
     labels, roi_ids, roi_names, _ = load_atlas(args.atlas, args.atlas_json,
                                                target_shape=target)
     labels = compact_labels(labels, roi_ids)
-    fpath, rpath = extract_unet_features(
-        test_data, labels, roi_names, args.out,
-        batch_size=cfg.batch_size, num_threads=cfg.loader_threads,
-        seed=cfg.seed, reference_bug_compat=args.reference_bug_compat,
-        device=args.device)
-    print(f"\nvoxel CSV : {fpath}")
-    print(f"ROI   CSV : {rpath}")
+    with distributed(args, cfg) as (device, mesh):
+        fpath, rpath = extract_unet_features(
+            test_data, labels, roi_names, args.out,
+            batch_size=cfg.batch_size, num_threads=cfg.loader_threads,
+            seed=cfg.seed, reference_bug_compat=args.reference_bug_compat,
+            device=device, mesh=mesh)
+    echo(f"\nvoxel CSV : {fpath}")
+    echo(f"ROI   CSV : {rpath}")
     return fpath, rpath
 
 

@@ -4,6 +4,9 @@ Point it at a checkpoint directory of `best_fold{k}` folds and a list of
 volumes (or a label CSV + image dir) to get per-subject fold-mean
 probabilities as CSV. Runs on the card unless told otherwise.
 
+Under ``python -m torch.distributed.run`` every rank serves its rows of
+each batch (cli/common.py) and rank 0 writes the CSV.
+
 Usage:
     python -m multimodal_ad_tpu_torch.cli.predict --ckpt-dir checkpoints/ \
         --volumes a.nii b.nii.gz --out predictions.csv
@@ -16,6 +19,8 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+
+from .common import add_device_args, distributed
 
 
 def main(argv=None):
@@ -30,13 +35,13 @@ def main(argv=None):
     p.add_argument("--task", default="ADCN")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--out", default="predictions.csv")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
 
     import numpy as np
 
     from ..data.pipeline import load_volume
+    from ..parallel.mesh import is_main
     from ..serve import EnsemblePredictor, labels_from_proba
 
     if args.volumes:
@@ -52,20 +57,23 @@ def main(argv=None):
     else:
         p.error("give --volumes or (--label-file and --mri-dir)")
 
-    pred = EnsemblePredictor.from_checkpoint_dir(
-        args.ckpt_dir, batch_size=args.batch_size, device=args.device)
-    vols = np.stack([load_volume(path) for path in paths])
-    proba = pred.predict_proba(vols)
+    with distributed(args) as (device, mesh):
+        pred = EnsemblePredictor.from_checkpoint_dir(
+            args.ckpt_dir, batch_size=args.batch_size, device=device, mesh=mesh)
+        vols = np.stack([load_volume(path) for path in paths])
+        proba = pred.predict_proba(vols)
+        main = is_main(mesh)
     labels = labels_from_proba(proba)
 
-    with open(args.out, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["Subject_ID", "pred"]
-                   + [f"prob_{c}" for c in range(proba.shape[1])])
-        for s, lab, pr in zip(subjects, labels, proba):
-            w.writerow([s, int(lab)] + [f"{v:.6f}" for v in pr])
-    print(f"wrote {len(subjects)} predictions ({pred.n_folds}-fold "
-          f"ensemble) -> {args.out}")
+    if main:
+        with open(args.out, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["Subject_ID", "pred"]
+                       + [f"prob_{c}" for c in range(proba.shape[1])])
+            for s, lab, pr in zip(subjects, labels, proba):
+                w.writerow([s, int(lab)] + [f"{v:.6f}" for v in pr])
+        print(f"wrote {len(subjects)} predictions ({pred.n_folds}-fold "
+              f"ensemble) -> {args.out}")
     return args.out
 
 

@@ -13,15 +13,14 @@ from __future__ import annotations
 from ..core.config import torch_dtype
 from ..models.densenet import DilatedDenseNet
 from ..train.cv import train_cv
-from .common import base_parser, load_config
+from .common import add_device_args, base_parser, distributed, echo, load_config
 
 
 def main(argv=None):
     p = base_parser(__doc__)
     p.add_argument("--growth", type=int, default=16)
     p.add_argument("--blocks", type=int, nargs="+", default=[6, 12, 24, 16])
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
     cfg = load_config(args)
 
@@ -32,8 +31,9 @@ def main(argv=None):
             dropout_rate=cfg.dropout_rate, spatial_dims=3,
             compute_dtype=torch_dtype(cfg.compute_dtype)).to(torch_dtype(cfg.param_dtype))
 
-    results, ckpt_dir = train_cv(cfg, model_factory=factory, device=args.device)
-    print(f"\ncheckpoints: {ckpt_dir}")
+    with distributed(args, cfg) as (device, mesh):
+        results, ckpt_dir = train_cv(cfg, model_factory=factory, device=device, mesh=mesh)
+    echo(f"\ncheckpoints: {ckpt_dir}")
     return results
 
 

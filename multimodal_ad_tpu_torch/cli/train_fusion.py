@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..train.fusion import train_fusion_cv
-from .common import base_parser, load_config
+from .common import add_device_args, base_parser, distributed, echo, load_config
 
 
 def read_fusion_table(path: str, start_col: int = 14, classes=("CN", "AD")):
@@ -42,8 +42,7 @@ def main(argv=None):
                    default="cross_transformer")
     p.add_argument("--dim", type=int, default=128)
     p.add_argument("--depth", type=int, default=2)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
     cfg = load_config(args)
 
@@ -54,11 +53,12 @@ def main(argv=None):
         table_data = read_fusion_table(args.table, args.table_start_col)
 
     model_kw = {} if args.arch == "daft" else dict(dim=args.dim, depth=args.depth)
-    best, ckpt_dir = train_fusion_cv(
-        cfg, use_pet=args.use_pet, use_table=args.use_table, table_data=table_data,
-        arch=args.arch, model_kw=model_kw, device=args.device)
-    print(f"\nbest fold scores: {np.round(best, 4).tolist()}")
-    print(f"checkpoints: {ckpt_dir}")
+    with distributed(args, cfg) as (device, mesh):
+        best, ckpt_dir = train_fusion_cv(
+            cfg, use_pet=args.use_pet, use_table=args.use_table, table_data=table_data,
+            arch=args.arch, model_kw=model_kw, device=device, mesh=mesh)
+    echo(f"\nbest fold scores: {np.round(best, 4).tolist()}")
+    echo(f"checkpoints: {ckpt_dir}")
     return best
 
 

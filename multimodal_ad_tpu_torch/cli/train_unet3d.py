@@ -10,17 +10,17 @@ Usage:
 from __future__ import annotations
 
 from ..train.single_split import train_unet_classifier
-from .common import base_parser, load_config
+from .common import add_device_args, base_parser, distributed, echo, load_config
 
 
 def main(argv=None):
     p = base_parser(__doc__)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+    add_device_args(p)
     args = p.parse_args(argv)
     cfg = load_config(args)
-    best_auc, ckpt_dir = train_unet_classifier(cfg, device=args.device)
-    print(f"\nbest val AUC: {best_auc:.4f}  checkpoints: {ckpt_dir}")
+    with distributed(args, cfg) as (device, mesh):
+        best_auc, ckpt_dir = train_unet_classifier(cfg, device=device, mesh=mesh)
+    echo(f"\nbest val AUC: {best_auc:.4f}  checkpoints: {ckpt_dir}")
     return best_auc
 
 

@@ -2,8 +2,10 @@
 
 The same JSON key schema and defaults, so a ``meta.json`` written by either
 package restores here. ``compute_dtype`` / ``param_dtype`` stay strings;
-`torch_dtype` maps them to torch dtypes. The mesh and prefetch knobs are
-kept only so configs round-trip; the port does not read them.
+`torch_dtype` maps them to torch dtypes. ``mesh_shape`` is the
+data-parallel mesh a process group runs (parallel/mesh.py::make_mesh, the
+trainers' default under ``python -m torch.distributed.run``; -1 takes
+every rank); ``prefetch_depth`` the streamed uploads kept in flight.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class Config:
     checkpoint_dir: str = "checkpoints"
     log_file: str = "training_log1.csv"
 
-    # ---- precision, and TPU-package knobs kept for round-tripping ----
+    # ---- mesh (-1 = every rank of the process group), precision, input ----
     mesh_shape: dict = field(default_factory=lambda: {"data": -1})
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"

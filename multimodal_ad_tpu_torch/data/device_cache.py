@@ -10,6 +10,14 @@ sends only index vectors.
 `DeviceEpochIterator` walks a subset of the store once per epoch for the
 training path: a per-epoch shuffle, K1 (or `adaptive_normal`) and, for
 training, augmentation on the device (ops/augment.py).
+
+Under a mesh (parallel/mesh.py) every rank holds the whole corpus on its
+own card, as the TPU package replicates it over the mesh, and the epoch
+iterator yields each rank its rows of every global batch: K1 runs on those
+rows only, and the augmentation is drawn for the global batch from the
+same generator on every rank, then sliced, so W ranks augment exactly as
+one process does. (The TPU package's iterator yields the whole gathered
+batch and lets GSPMD split the work; here the split is explicit.)
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from ..core.device import resolve_device
 from ..ops.augment import augment_batch
 from ..ops.fused_gather import _as_indices, gather_normalize
 from ..ops.normalize import NORMALIZERS
+from ..parallel.mesh import local_rows
 
 
 def quantize_uint8(volumes: np.ndarray) -> np.ndarray:
@@ -56,14 +65,17 @@ class DeviceDataset:
     `quantize_uint8`). `gather_normalized` runs K1 whatever the store dtype
     K1 takes (uint8, int16, float32). ``fused_norm=True`` stores non-integer
     volumes as int16, as the TPU package's fused store does; the normalize
-    path is the same either way."""
+    path is the same either way. Under a `mesh` each rank holds its own
+    copy on its card (`device`, the rank's); iterators over the store take
+    the mesh from it."""
 
     def __init__(self, volumes: np.ndarray, labels: np.ndarray,
                  device: str | torch.device = "cuda", store_dtype=None,
-                 fused_norm: bool = False, quantize: str | None = None):
+                 fused_norm: bool = False, quantize: str | None = None, mesh=None):
         if volumes.ndim != 5:
             raise ValueError(f"expect (N, X, Y, Z, C), got shape {volumes.shape}")
         self.device = resolve_device(device)
+        self.mesh = mesh
         if store_dtype is not None:
             volumes = volumes.astype(store_dtype)
         if quantize is not None:
@@ -137,7 +149,14 @@ class DeviceEpochIterator:
     and normalizes in one K1 launch (`DeviceDataset.gather_normalized`);
     ``"adaptive_normal"`` gathers, then normalizes with ops/normalize.py.
     With `augment`, `augment_batch` follows, its draws from a host
-    generator seeded with `seed`. The host sends only index vectors."""
+    generator seeded with `seed`. The host sends only index vectors.
+
+    Under a `mesh` (default: the dataset's) each batch holds this rank's
+    contiguous rows of the global batch of `batch_size` ('image', 'label'
+    and 'mask' are its rows; 'subject' still names the global batch's real
+    rows): K1 gathers only them, and the augmentation draws for the global
+    batch and applies this rank's draws. `batch_size` must divide by the
+    mesh's size."""
 
     device_resident = True
 
@@ -146,9 +165,12 @@ class DeviceEpochIterator:
                  normalizer: str = "scale_intensity", subjects=None,
                  augment: bool = False, flip_prob: float = 0.3,
                  rotate_prob: float = 0.3, zoom_prob: float = 0.3,
-                 scale_prob: float = 0.0):
+                 scale_prob: float = 0.0, mesh=None):
         if normalizer not in NORMALIZERS:
             raise ValueError(f"unknown normalizer {normalizer!r}")
+        self.mesh = mesh if mesh is not None else dataset.mesh
+        self.rows = (local_rows(batch_size, self.mesh) if self.mesh is not None
+                     else slice(0, batch_size))
         self.ds = dataset
         self.indices = np.asarray(indices, np.int64)
         _as_indices(self.indices, dataset.n)  # range-checked once, here
@@ -172,7 +194,8 @@ class DeviceEpochIterator:
         return torch.from_numpy(chunk).to(self.ds.device, non_blocking=True)
 
     def _batch(self, chunk: np.ndarray) -> dict:
-        idx = self._upload(chunk)
+        """The batch of this rank's rows of the global `chunk`."""
+        idx = self._upload(chunk[self.rows])
         if self.normalizer == "scale_intensity":
             batch = self.ds.gather_normalized(idx)  # K1
         else:
@@ -180,7 +203,8 @@ class DeviceEpochIterator:
             batch["image"] = NORMALIZERS[self.normalizer](batch["image"])
         if self.augment:
             batch["image"] = augment_batch(batch["image"], self.generator,
-                                           **self.aug_kw)
+                                           global_rows=len(chunk),
+                                           row_offset=self.rows.start, **self.aug_kw)
         return batch
 
     def __iter__(self):
@@ -198,7 +222,7 @@ class DeviceEpochIterator:
                     [order] * (pad // max(len(order), 1) + 1))[:pad]
                 chunk = np.concatenate([chunk, extra])
             batch = self._batch(chunk)
-            batch["mask"] = (torch.arange(bs, device=self.ds.device)
+            batch["mask"] = (torch.arange(bs, device=self.ds.device)[self.rows]
                              < n_real).to(torch.float32)
             real = chunk[:n_real]
             batch["subject"] = ([self.subjects[j] for j in real]
@@ -209,8 +233,9 @@ class DeviceEpochIterator:
 
 def build_device_dataset(records, device: str | torch.device = "cuda",
                          loader=None, transform=None, store_dtype=np.int16,
-                         num_threads: int = 8, quantize: str | None = None):
-    """Decode a manifest's volumes once on the host and upload them.
+                         num_threads: int = 8, quantize: str | None = None, mesh=None):
+    """Decode a manifest's volumes once on the host and upload them (each
+    rank its own copy under a `mesh`).
 
     `transform` (optional) runs per volume on the host before upload."""
     from concurrent.futures import ThreadPoolExecutor
@@ -233,4 +258,4 @@ def build_device_dataset(records, device: str | torch.device = "cuda",
     volumes = np.stack(vols)
     labels = np.asarray([r["label"] for r in records], np.int32)
     return DeviceDataset(volumes, labels, device=dev, store_dtype=store_dtype,
-                         quantize=quantize)
+                         quantize=quantize, mesh=mesh)

@@ -30,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_rows
 from ..utils import native_loader, nifti
 
 
@@ -167,9 +168,13 @@ class VolumeBatcher:
                 yield batch
 
 
-def device_prefetch(iterator, device, depth: int = 2):
+def device_prefetch(iterator, device, depth: int = 2, mesh=None):
     """Yield the batches of `iterator` with every ndarray entry as a tensor
-    on `device`; other entries (subject ids) pass through.
+    on `device`; other entries (subject ids) pass through. Under a `mesh`
+    (parallel/mesh.py) only this rank's contiguous rows of each ndarray and
+    of the per-row 'plan' list are uploaded; 'subject' still names the
+    global batch's real rows. The batch size must divide by the mesh's
+    size.
 
     A producer thread runs `iterator`. On CUDA it copies each array into
     pinned memory and uploads it on a side stream, records an event, and
@@ -180,6 +185,13 @@ def device_prefetch(iterator, device, depth: int = 2):
     producer."""
     dev = torch.device(device)
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def shard(batch):
+        if mesh is None:
+            return batch
+        rows = local_rows(len(batch["mask"]), mesh)
+        return {k: v[rows] if isinstance(v, np.ndarray) or k == "plan" else v
+                for k, v in batch.items()}
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -208,7 +220,7 @@ def device_prefetch(iterator, device, depth: int = 2):
     def producer():
         try:
             for batch in iterator:
-                if not put(upload(batch)):
+                if not put(upload(shard(batch))):
                     return
             put((end, None))
         except Exception as e:  # handed to the consumer, which re-raises it

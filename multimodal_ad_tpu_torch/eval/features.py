@@ -23,6 +23,14 @@ channels-last model flattens it) and feature_map_shapes.csv (the four
 stage taps' (B, X, Y, Z, C) shapes, B the padded batch). Input as above:
 uploaded raw, normalized on the device (K1 for `scale_intensity`), cuDNN
 held to deterministic heuristic algorithms.
+
+Under a mesh (parallel/mesh.py; by default `make_mesh({"data": -1})` when
+a process group is initialized, as in the TPU package) each rank uploads,
+normalizes (K1), forwards and pools (K2) its contiguous rows of every
+batch; the rows are assembled on the device in global order
+(`gather_rows`) and the mesh's first rank alone writes the CSVs, whose
+rows and order are the single process's. The batch size must divide by
+the mesh's size.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ..models.resnet3d import ResNet3D
 from ..models.unet3d import UNet3D
 from ..ops.normalize import NORMALIZERS
 from ..ops.roi_pool import RoiAtlas, roi_pool
+from ..parallel import mesh as pmesh
 
 
 @contextlib.contextmanager
@@ -64,10 +73,10 @@ def extract_unet_features(records, atlas_labels, roi_names, out_dir,
                           loader=load_volume, num_threads: int = 8, seed: int = 0,
                           reference_bug_compat: bool = False,
                           normalizer: str = "scale_intensity",
-                          device: str | torch.device = "cuda"):
+                          device: str | torch.device = "cuda", mesh=None):
     """Run the U-Net over `records` ({'MRI': path, 'label', 'Subject'}),
     write features.csv + roi_features.csv into `out_dir`, and return their
-    paths.
+    paths (None on a rank outside the mesh).
 
     `atlas_labels` is the (X, Y, Z) label volume with ROI ids
     1..len(roi_names) on the volumes' grid. `model` carries its weights; by
@@ -76,6 +85,9 @@ def extract_unet_features(records, atlas_labels, roi_names, out_dir,
     dev = resolve_device(device)
     if normalizer not in NORMALIZERS:
         raise ValueError(f"unknown normalizer {normalizer!r}")
+    mesh, main = pmesh.resolve_mesh(mesh, {"data": -1}, batch_size)
+    if main is None:
+        return None
     normalize = NORMALIZERS[normalizer]
     if model is None:
         model = UNet3D(in_channels=1, num_classes=1,
@@ -86,19 +98,19 @@ def extract_unet_features(records, atlas_labels, roi_names, out_dir,
     batcher = VolumeBatcher(records, batch_size=batch_size,
                             num_threads=num_threads, loader=loader)
 
-    os.makedirs(out_dir, exist_ok=True)
     feat_path = os.path.join(out_dir, "features.csv")
     roi_path = os.path.join(out_dir, "roi_features.csv")
-    with open(feat_path, "w", newline="") as ff, \
-            open(roi_path, "w", newline="") as rf, deterministic_cudnn():
-        fw, rw = csv.writer(ff), csv.writer(rf)
+    with _writers(main, out_dir, feat_path, roi_path) as (fw, rw), deterministic_cudnn():
         wrote_headers = False
-        for batch in device_prefetch(iter(batcher), dev, depth=2):
+        for batch in device_prefetch(iter(batcher), dev, depth=2, mesh=mesh):
             subjects = batch["subject"]  # the real rows, which come first
             with torch.inference_mode():
                 out, feats = model(normalize(batch["image"]), return_features=True)
-                roi = roi_pool(feats, atlas, num_rois).cpu().numpy()  # (B, R, C)
-                flat = out.reshape(out.shape[0], -1).cpu().numpy()
+                roi = pmesh.gather_rows(roi_pool(feats, atlas, num_rois), mesh)  # (B, R, C)
+                flat = pmesh.gather_rows(out.reshape(out.shape[0], -1), mesh)
+                roi, flat = roi.cpu().numpy(), flat.cpu().numpy()
+            if not main:
+                continue
             n_ch = roi.shape[-1]
             if not wrote_headers:
                 fw.writerow(["Subject_ID"] + [f"f{i}" for i in range(flat.shape[1])])
@@ -112,7 +124,21 @@ def extract_unet_features(records, atlas_labels, roi_names, out_dir,
             for i, sid in enumerate(subjects):
                 fw.writerow([sid] + flat[i].tolist())
                 rw.writerow([sid] + rows[i].tolist())
+    pmesh.barrier(mesh, dev)  # the CSVs are complete on every rank's return
     return feat_path, roi_path
+
+
+@contextlib.contextmanager
+def _writers(main: bool, out_dir: str, *paths):
+    """csv writers of `paths` (opened for writing, `out_dir` created) on the
+    writing rank; Nones on the others."""
+    if not main:
+        yield (None,) * len(paths)
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    with contextlib.ExitStack() as stack:
+        yield tuple(csv.writer(stack.enter_context(open(p, "w", newline="")))
+                    for p in paths)
 
 
 def extract_encoder_features(records, out_dir, depth: int = 18,
@@ -120,10 +146,10 @@ def extract_encoder_features(records, out_dir, depth: int = 18,
                              batch_size: int = 4, loader=load_volume,
                              num_threads: int = 8, seed: int = 0,
                              normalizer: str = "scale_intensity",
-                             device: str | torch.device = "cuda"):
+                             device: str | torch.device = "cuda", mesh=None):
     """ResNet encoder features of `records` ({'MRI': path, 'label',
     'Subject'}) -> adni_features.csv + feature_map_shapes.csv in `out_dir`;
-    returns their paths.
+    returns their paths (None on a rank outside the mesh).
 
     `model` carries its weights (its head 'none' or 'pool' decides the
     row); by default it is an eval-mode float32 ResNet `depth` with head
@@ -133,6 +159,9 @@ def extract_encoder_features(records, out_dir, depth: int = 18,
     dev = resolve_device(device)
     if normalizer not in NORMALIZERS:
         raise ValueError(f"unknown normalizer {normalizer!r}")
+    mesh, main = pmesh.resolve_mesh(mesh, {"data": -1}, batch_size)
+    if main is None:
+        return None
     normalize = NORMALIZERS[normalizer]
     if model is None:
         model = ResNet3D(depth=depth, head="pool" if global_pool else "none",
@@ -144,30 +173,36 @@ def extract_encoder_features(records, out_dir, depth: int = 18,
     batcher = VolumeBatcher(records, batch_size=batch_size, num_threads=num_threads,
                             loader=loader)
 
-    os.makedirs(out_dir, exist_ok=True)
     feat_path = os.path.join(out_dir, "adni_features.csv")
     shape_path = os.path.join(out_dir, "feature_map_shapes.csv")
     shape_rows = []
-    with open(feat_path, "w", newline="") as ff, deterministic_cudnn():
-        fw = csv.writer(ff)
+    w = pmesh.data_size(mesh)
+    with _writers(main, out_dir, feat_path) as (fw,), deterministic_cudnn():
         wrote_header = False
-        for batch in device_prefetch(iter(batcher), dev, depth=2):
+        for batch in device_prefetch(iter(batcher), dev, depth=2, mesh=mesh):
             subjects = batch["subject"]  # the real rows, which come first
             with torch.inference_mode():
                 out, taps = model(normalize(batch["image"]), return_taps=True)
-                flat = out.float().reshape(out.shape[0], -1).cpu().numpy()
-            labels = batch["label"].cpu().numpy()
+                flat = pmesh.gather_rows(out.float().reshape(out.shape[0], -1), mesh)
+                flat = flat.cpu().numpy()
+            labels = pmesh.gather_rows(batch["label"], mesh).cpu().numpy()
+            if not main:
+                continue
             if not wrote_header:
                 fw.writerow(["Subject_ID"] + [f"f{i}" for i in range(flat.shape[1])]
                             + ["label"])
-                shape_rows = [("stage_out", tuple(int(d) for d in t.shape)) for t in taps]
+                # the global batch's shapes: B counts every rank's rows
+                shape_rows = [("stage_out", (w * int(t.shape[0]),)
+                               + tuple(int(d) for d in t.shape[1:])) for t in taps]
                 wrote_header = True
             for i, sid in enumerate(subjects):
                 fw.writerow([sid] + flat[i].tolist() + [int(labels[i])])
 
-    with open(shape_path, "w", newline="") as sf:
-        sw = csv.writer(sf)
-        sw.writerow(["module", "output_shape"])
-        for name, shape in shape_rows:
-            sw.writerow([name, str(shape)])
+    if main:
+        with open(shape_path, "w", newline="") as sf:
+            sw = csv.writer(sf)
+            sw.writerow(["module", "output_shape"])
+            for name, shape in shape_rows:
+                sw.writerow([name, str(shape)])
+    pmesh.barrier(mesh, dev)
     return feat_path, shape_path

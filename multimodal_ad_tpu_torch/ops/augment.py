@@ -108,15 +108,27 @@ def _apply_to(batch, rows, fn):
     return torch.stack([new[pos[i]] if r else batch[i] for i, r in enumerate(rows)])
 
 
+def _draw(generator, rows: int, batch_images, global_rows, row_offset):
+    """(rows, B_global) uniforms for the global batch, then this batch's
+    columns: a batch that is rows [row_offset, row_offset + B) of a global
+    batch of `global_rows` (one rank's share under a mesh) takes the draws
+    the whole batch would give those rows."""
+    b = batch_images.shape[0]
+    n = b if global_rows is None else int(global_rows)
+    u = torch.rand((rows, n), generator=generator, dtype=torch.float64)
+    return u[:, row_offset:row_offset + b]
+
+
 def random_rotate_zoom(batch_images, generator, rotate_prob: float = 0.3,
                        range_x: float = 0.05, zoom_prob: float = 0.3,
-                       min_zoom: float = 0.95, max_zoom: float = 1.0):
+                       min_zoom: float = 0.95, max_zoom: float = 1.0,
+                       global_rows: int | None = None, row_offset: int = 0):
     """Per-sample random rotation about axis 0 (angle uniform in
     [-range_x, range_x] with probability rotate_prob) and central zoom
     (uniform in [min_zoom, max_zoom] with probability zoom_prob) of a
-    (B, X, Y, Z, C) batch, one resample for all the samples drawn."""
-    b = batch_images.shape[0]
-    u = torch.rand((4, b), generator=generator, dtype=torch.float64)
+    (B, X, Y, Z, C) batch, one resample for all the samples drawn.
+    `global_rows` / `row_offset`: see `augment_batch`."""
+    u = _draw(generator, 4, batch_images, global_rows, row_offset)
     do_r, do_z = u[0] < rotate_prob, u[2] < zoom_prob
     angle = torch.where(do_r, -range_x + 2 * range_x * u[1], 0.0).tolist()
     zoom = torch.where(do_z, min_zoom + (max_zoom - min_zoom) * u[3], 1.0).tolist()
@@ -125,10 +137,10 @@ def random_rotate_zoom(batch_images, generator, rotate_prob: float = 0.3,
                                                 [zoom[i] for i in sel]))
 
 
-def random_flip(batch_images, generator, prob: float = 0.3, axis: int = 1):
+def random_flip(batch_images, generator, prob: float = 0.3, axis: int = 1,
+                global_rows: int | None = None, row_offset: int = 0):
     """Per-sample flip along a spatial axis of (B, X, Y, Z, C)."""
-    b = batch_images.shape[0]
-    do = torch.rand((b,), generator=generator, dtype=torch.float64) < prob
+    do = _draw(generator, 1, batch_images, global_rows, row_offset)[0] < prob
     return _apply_to(batch_images, do, lambda v, sel: v.flip(axis))
 
 
@@ -140,22 +152,22 @@ def _per_sample(v, values):
 
 
 def random_intensity_scale(batch_images, generator, prob: float = 0.3,
-                           factor: float = 0.1):
+                           factor: float = 0.1, global_rows: int | None = None,
+                           row_offset: int = 0):
     """Multiply each sample, with probability `prob`, by a factor uniform in
     [1 - factor, 1 + factor]."""
-    b = batch_images.shape[0]
-    u = torch.rand((2, b), generator=generator, dtype=torch.float64)
+    u = _draw(generator, 2, batch_images, global_rows, row_offset)
     scale = torch.where(u[0] < prob, 1.0 + (-factor + 2 * factor * u[1]), 1.0)
     return _apply_to(batch_images, u[0] < prob,
                      lambda v, sel: v * _per_sample(v, scale[sel]))
 
 
 def random_intensity_shift(batch_images, generator, prob: float = 0.3,
-                           offset: float = 0.1):
+                           offset: float = 0.1, global_rows: int | None = None,
+                           row_offset: int = 0):
     """Add to each sample, with probability `prob`, an offset uniform in
     [-offset, offset]."""
-    b = batch_images.shape[0]
-    u = torch.rand((2, b), generator=generator, dtype=torch.float64)
+    u = _draw(generator, 2, batch_images, global_rows, row_offset)
     shift = torch.where(u[0] < prob, -offset + 2 * offset * u[1], 0.0)
     return _apply_to(batch_images, u[0] < prob,
                      lambda v, sel: v + _per_sample(v, shift[sel]))
@@ -163,16 +175,21 @@ def random_intensity_shift(batch_images, generator, prob: float = 0.3,
 
 def augment_batch(batch_images, generator, flip_prob: float = 0.3,
                   rotate_prob: float = 0.3, zoom_prob: float = 0.3,
-                  scale_prob: float = 0.0, shift_prob: float = 0.0):
+                  scale_prob: float = 0.0, shift_prob: float = 0.0,
+                  global_rows: int | None = None, row_offset: int = 0):
     """Composite augmentation: flip p=0.3, rotate p=0.3 (range_x 0.05), zoom
     p=0.3 in [0.95, 1.0], as the reference's MONAI training pipeline;
     intensity scale/shift are opt-in extras. `generator` is a host
-    torch.Generator."""
-    x = random_flip(batch_images, generator, flip_prob)
+    torch.Generator. Where `batch_images` is rows [row_offset, row_offset +
+    B) of a global batch of `global_rows` (a rank's share under a mesh),
+    every draw is made for the global batch and the batch takes its rows'
+    draws, so the ranks together augment as one process would."""
+    kw = dict(global_rows=global_rows, row_offset=row_offset)
+    x = random_flip(batch_images, generator, flip_prob, **kw)
     if rotate_prob > 0 or zoom_prob > 0:
-        x = random_rotate_zoom(x, generator, rotate_prob, zoom_prob=zoom_prob)
+        x = random_rotate_zoom(x, generator, rotate_prob, zoom_prob=zoom_prob, **kw)
     if scale_prob > 0:
-        x = random_intensity_scale(x, generator, scale_prob)
+        x = random_intensity_scale(x, generator, scale_prob, **kw)
     if shift_prob > 0:
-        x = random_intensity_shift(x, generator, shift_prob)
+        x = random_intensity_shift(x, generator, shift_prob, **kw)
     return x

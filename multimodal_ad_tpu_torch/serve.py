@@ -16,7 +16,14 @@ the TPU package's serve.py).
 - `quantize_int8` turns the ensemble into int8 serving
   (models/resnet3d_int8.py): every fold is exported, calibrated on the
   same preprocessing and then served by its `ResNet3DInt8`, whose block
-  convolutions run K3 (ops/int8_conv.py) on the card.
+  convolutions run K3 (ops/int8_conv.py) on the card,
+- under a mesh (parallel/mesh.py) every rank holds the folds and runs its
+  contiguous rows of each padded chunk: it uploads only them, K1
+  normalizes them and the bf16 or int8 folds forward them; the rows'
+  probabilities are assembled on every rank (`gather_rows`), so
+  `predict_proba` returns the whole result everywhere. The batch size must
+  divide by the mesh's size. Calibration (`quantize_int8`) runs the whole
+  calibration set on every rank, so the scales are the single process's.
 
 Usage:
     pred = EnsemblePredictor.from_checkpoint_dir("checkpoints/")
@@ -38,6 +45,7 @@ from .core.device import resolve_device
 from .models.resnet3d import generate_model
 from .ops.fused_gather import gather_normalize
 from .ops.normalize import NORMALIZERS
+from .parallel import mesh as pmesh
 from .train import checkpoint as ckpt
 from .train.metrics import _macro_ovr_auc, binary_auc
 
@@ -53,16 +61,20 @@ class EnsemblePredictor:
     """Fold-ensemble classifier over 3D volumes on one device.
 
     `model` is a ResNet3D template; each entry of `fold_state_dicts` is
-    loaded into its own copy."""
+    loaded into its own copy. With `mesh` each rank serves its rows of
+    every chunk (`batch_size` must divide by the mesh's size)."""
 
     def __init__(self, model, fold_state_dicts: list, batch_size: int = 8,
                  normalizer: str = "scale_intensity",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.device = resolve_device(device)
         if not fold_state_dicts:
             raise ValueError("no fold weights given")
         if normalizer not in NORMALIZERS:
             raise ValueError(f"unknown normalizer {normalizer!r}")
+        self.mesh = mesh
+        self.rows = (pmesh.local_rows(int(batch_size), mesh) if mesh is not None
+                     else slice(0, int(batch_size)))
         self.model = model
         self.n_folds = len(fold_state_dicts)
         self.batch_size = int(batch_size)
@@ -81,7 +93,7 @@ class EnsemblePredictor:
     def from_checkpoint_dir(cls, ckpt_dir: str, cfg: Config | None = None,
                             prefix: str = "best_fold",
                             batch_size: int | None = None,
-                            device: str | torch.device = "cuda"):
+                            device: str | torch.device = "cuda", mesh=None):
         """Load every `{prefix}{k}` checkpoint (k = 1..) of a CV output
         directory. The config comes from the checkpoints' meta.json unless
         `cfg` is given."""
@@ -106,7 +118,7 @@ class EnsemblePredictor:
             param_dtype=torch_dtype(cfg.param_dtype))
         state_dicts = [ckpt.restore_state(path)[0] for path in folds]
         return cls(model, state_dicts, batch_size=batch_size or cfg.batch_size,
-                   normalizer=cfg.normalizer, device=device)
+                   normalizer=cfg.normalizer, device=device, mesh=mesh)
 
     # ---- int8 serving ---------------------------------------------------
 
@@ -160,15 +172,17 @@ class EnsemblePredictor:
             acc = p if acc is None else acc + p
         return acc / self.n_folds
 
-    def _prep(self, chunk: torch.Tensor, preprocess: bool) -> torch.Tensor:
+    def _prep(self, chunk: torch.Tensor, preprocess: bool,
+              size: int | None = None) -> torch.Tensor:
         """Device chunk (real, X, Y, Z[, C]) float32 -> padded, normalized
-        batch (batch_size, X, Y, Z, C) in `input_dtype` (the model's compute
-        type; bf16 once `quantize_int8` has begun)."""
+        batch (size, X, Y, Z, C), size the batch size by default, in
+        `input_dtype` (the model's compute type; bf16 once `quantize_int8`
+        has begun)."""
         dtype = self.input_dtype
         if chunk.dim() == 4:
             chunk = chunk.unsqueeze(-1)
         real, *spatial, c = chunk.shape
-        bs = self.batch_size
+        bs = self.batch_size if size is None else size
         rows = torch.arange(bs).clamp(max=real - 1)  # pad: repeat the last row
         if not preprocess:
             return chunk[rows.to(chunk.device)]
@@ -183,15 +197,20 @@ class EnsemblePredictor:
 
     def predict_proba(self, volumes, preprocess: bool = True) -> np.ndarray:
         """(n, X, Y, Z) or (n, X, Y, Z, C) host volumes -> (n, classes)
-        fold-mean probabilities."""
+        fold-mean probabilities (on every rank under a mesh)."""
         vols = np.asarray(volumes, np.float32)
         bs = self.batch_size
         out = []
         for i in range(0, vols.shape[0], bs):
-            chunk = torch.from_numpy(np.ascontiguousarray(vols[i:i + bs]))
-            real = chunk.shape[0]
-            probs = self.forward(self._prep(chunk.to(self.device), preprocess))
-            out.append(probs[:real].cpu().numpy())
+            real = min(bs, vols.shape[0] - i)
+            if self.mesh is None:
+                chunk = vols[i:i + real]
+            else:  # upload only this rank's rows, the pad repeating the last
+                chunk = vols[i + np.minimum(np.arange(bs)[self.rows], real - 1)]
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            probs = self.forward(self._prep(chunk, preprocess,
+                                            self.rows.stop - self.rows.start))
+            out.append(pmesh.gather_rows(probs, self.mesh)[:real].cpu().numpy())
         return np.concatenate(out, axis=0)
 
     def predict(self, volumes, preprocess: bool = True) -> np.ndarray:

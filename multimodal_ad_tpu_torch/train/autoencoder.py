@@ -18,6 +18,12 @@ The keep masks come from a `torch.Generator` on the device seeded with
 ``cfg.seed + 7``; the TPU package draws ``bernoulli(fold_in(key, step))``,
 so the masks follow the same distribution, not the same samples. A train
 step takes an explicit `keep` mask instead where one is given.
+
+Under a mesh (by default `make_mesh(cfg.mesh_shape)` under a process
+group) each rank trains on its rows of every batch; the keep mask is
+drawn for the global batch from the same generator on every rank and
+sliced, so W ranks draw the masks one process draws. The MSE divides by the global count of real rows, and the mesh's
+first rank writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -33,45 +39,54 @@ from ..core.device import resolve_device
 from ..data.adni import ADNIManifest
 from ..data.pipeline import VolumeBatcher, load_volume
 from ..models.unet3d import UNet3D
+from ..parallel import mesh as pmesh
 from . import checkpoint as ckpt
 from .cv import _device_batches
-from .loop import (TrainState, apply_gradients, cosine_decay_schedule,
-                   create_train_state, next_epoch)
+from .loop import (TrainState, apply_gradients, backward_mean, cosine_decay_schedule,
+                   create_train_state, global_mean, next_epoch)
 from .single_split import single_split
 
 WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the TPU package keeps
 
 
+def _mse_sums(recon, image, mask):
+    per_sample = ((recon.float() - image) ** 2).mean(dim=(1, 2, 3, 4))
+    return (per_sample * mask).sum(), mask.sum()
+
+
 def reconstruction_mse(recon, image, mask):
     """Per-sample mean squared error, averaged over the rows `mask` marks."""
-    per_sample = ((recon.float() - image) ** 2).mean(dim=(1, 2, 3, 4))
-    return (per_sample * mask).sum() / mask.sum().clamp(min=1e-8)
+    num, den = _mse_sums(recon, image, mask)
+    return num / den.clamp(min=1e-8)
 
 
 def make_ae_steps(noise_rate: float = 0.2, generator: torch.Generator | None = None):
     """(train_step, eval_step). ``train_step(state, batch, keep=None)`` zeroes
     the voxels where `keep` is False (drawn from `generator` when not
-    given), reconstructs, takes one update and returns the loss;
-    ``eval_step(state, batch)`` returns the noise-free validation loss. Both
-    keep the loss on the device."""
+    given; under a mesh drawn for the global batch and sliced to this
+    rank's rows), reconstructs, takes one update and returns the loss;
+    ``eval_step(state, batch)`` returns the noise-free validation loss
+    (global under a mesh). Both keep the loss on the device."""
 
     def train_step(state: TrainState, batch: dict, keep=None):
         image = batch["image"]
         if keep is None:
-            keep = torch.rand(image.shape, generator=generator,
-                              device=image.device) < 1.0 - noise_rate
+            w = pmesh.data_size(state.mesh)
+            rows = pmesh.local_rows(w * image.shape[0], state.mesh)
+            keep = torch.rand((w * image.shape[0], *image.shape[1:]), generator=generator,
+                              device=image.device)[rows] < 1.0 - noise_rate
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = reconstruction_mse(state.model(image * keep.to(image.dtype)), image,
-                                  batch["mask"])
-        loss.backward()
+        recon = state.train_module(image * keep.to(image.dtype))
+        loss = backward_mean(state, *_mse_sums(recon, image, batch["mask"]))
         apply_gradients(state)
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
         state.model.eval()
-        return reconstruction_mse(state.model(batch["image"]), batch["image"], batch["mask"])
+        return global_mean(*_mse_sums(state.model(batch["image"]), batch["image"],
+                                      batch["mask"]), state.mesh)
 
     return train_step, eval_step
 
@@ -84,12 +99,18 @@ def _default_model(cfg: Config, seed: int | None = None) -> UNet3D:
 
 def train_unet_autoencoder(cfg: Config, records=None, loader=None, model=None,
                            noise_rate: float = 0.2, verbose=True,
-                           device: str | torch.device = "cuda"):
+                           device: str | torch.device = "cuda", mesh=None):
     """Train on the 64 % split, select by the 16 % split's MSE. Returns
-    (best_val_mse, checkpoint_path). `model` replaces the config's UNet3D
-    (64/128/256/512, initial weights drawn from a generator seeded with
-    cfg.seed)."""
+    (best_val_mse, checkpoint_path); (None, checkpoint_path) on a rank
+    outside the mesh. `model` replaces the config's UNet3D (64/128/256/512,
+    initial weights drawn from a generator seeded with cfg.seed); `mesh` as
+    train_cv's."""
     dev = resolve_device(device)
+    best_path = os.path.join(cfg.checkpoint_dir, "unet_ae_best")
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None, best_path
+    verbose = verbose and main
     np.random.seed(cfg.seed)
     model = model if model is not None else _default_model(cfg, cfg.seed)
     if records is None:
@@ -102,14 +123,15 @@ def train_unet_autoencoder(cfg: Config, records=None, loader=None, model=None,
     loader_vl = VolumeBatcher(val_data, **kw)
 
     state = create_train_state(model.to(dev), cosine_decay_schedule(cfg.lr, max(1, cfg.num_epochs)),
-                               WEIGHT_DECAY, grad_clip_norm=1.0, optimizer="adamw")
+                               WEIGHT_DECAY, grad_clip_norm=1.0, optimizer="adamw",
+                               mesh=mesh)
     train_step, eval_step = make_ae_steps(
         noise_rate, torch.Generator(device=dev).manual_seed(cfg.seed + 7))
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    best_path = os.path.join(cfg.checkpoint_dir, "unet_ae_best")
+    if main:
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
 
     def batches(loader):
-        return _device_batches(loader, dev, cfg.normalizer, cfg.prefetch_depth)
+        return _device_batches(loader, dev, cfg.normalizer, cfg.prefetch_depth, mesh)
 
     def mean(losses) -> float:  # the epoch's one device -> host fetch
         return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
@@ -125,8 +147,10 @@ def train_unet_autoencoder(cfg: Config, records=None, loader=None, model=None,
                   f"{time.time() - t0:.1f}s")
         if vl < best:
             best = vl
-            ckpt.save_checkpoint(best_path, state, metrics={"val_mse": vl, "epoch": epoch},
-                                 config=cfg.to_dict())
+            if main:
+                ckpt.save_checkpoint(best_path, state, metrics={"val_mse": vl, "epoch": epoch},
+                                     config=cfg.to_dict())
+    pmesh.barrier(mesh, dev)
     return best, best_path
 
 

@@ -25,6 +25,18 @@ Input paths:
 Losses and probabilities stay on the device until an epoch ends: one host
 fetch per epoch, so queued steps run back to back. Runs on the card unless
 ``device="cpu"`` is given.
+
+Under a mesh (parallel/mesh.py; by default `make_mesh(cfg.mesh_shape)`
+when a process group is initialized, as under ``python -m
+torch.distributed.run``) every rank runs its rows of each global batch of
+``cfg.batch_size``, which must divide by the mesh's size. BatchNorm
+statistics, losses and gradients are global (train/loop.py), the epoch
+metrics come from the global rows in global order (one all_reduce an
+epoch), and the mesh's first rank alone writes cv_results.csv, the
+checkpoints and the ROC figure while the others wait for it at the end of
+each fold. A run at world size W gives the numbers of one process at the
+same global batch, up to the order of sums and each rank's own dropout
+draws.
 """
 
 from __future__ import annotations
@@ -45,7 +57,8 @@ from ..data.splits import stratified_kfold, stratified_test_split
 from ..data.transforms import apply_plans, make_transforms
 from ..models.resnet3d import generate_model
 from ..ops.normalize import NORMALIZERS
-from ..utils.logging import CVLogger
+from ..parallel import mesh as pmesh
+from ..utils.logging import cv_logger
 from ..utils.profiling import StepTimer, trace
 from . import checkpoint as ckpt
 from .loop import (TrainState, create_train_state, eval_step, make_epoch_schedule,
@@ -78,13 +91,13 @@ def _make_model(cfg: Config, model_factory, seed: int):
         generator=torch.Generator().manual_seed(seed))
 
 
-def _device_batches(loader, device, normalizer: str, depth: int):
-    """Streamed host batches, uploaded ahead and normalized on the device,
-    each modality ('image', and 'pet' where the batch has one) on its own;
-    a batch that carries augmentation plans has each row's plan applied to
-    every modality next."""
+def _device_batches(loader, device, normalizer: str, depth: int, mesh=None):
+    """Streamed host batches, uploaded ahead (this rank's rows under a mesh)
+    and normalized on the device, each modality ('image', and 'pet' where
+    the batch has one) on its own; a batch that carries augmentation plans
+    has each row's plan applied to every modality next."""
     normalize = NORMALIZERS[normalizer]
-    for batch in device_prefetch(iter(loader), device, depth=depth):
+    for batch in device_prefetch(iter(loader), device, depth=depth, mesh=mesh):
         plans = batch.pop("plan", None)
         for key in ("image", "pet"):
             if key in batch:
@@ -103,16 +116,31 @@ def _epoch_metrics(probs: np.ndarray, labels: np.ndarray, mask: np.ndarray) -> d
     return calculate_metrics_multiclass(y_true, y_pred, y_prob)
 
 
+def collect_rows(probs_l, masks_l, labels_l, mesh=None):
+    """Host (probs, real-row mask, labels) of a pass from its per-batch
+    device tensors, the global rows in global order under a mesh (each
+    batch's rows rank by rank; one all_reduce for the pass)."""
+    probs = torch.stack(probs_l).float()  # (batches, rows, classes)
+    packed = torch.cat([probs, torch.stack(masks_l).float()[..., None],
+                        torch.stack(labels_l).float()[..., None]], dim=-1)
+    packed = pmesh.gather_rows(packed.transpose(0, 1).contiguous(), mesh).transpose(0, 1)
+    packed = packed.reshape(-1, packed.shape[-1]).cpu().numpy()
+    return (packed[:, :-2], packed[:, -2] > 0,
+            packed[:, -1].astype(np.int64))
+
+
 def _run_epoch(step_fn, state, loader, device, *, train, class_weights=None,
-               normalizer="scale_intensity", prefetch_depth=2, timer=None):
+               normalizer="scale_intensity", prefetch_depth=2, timer=None, mesh=None):
     """One pass over `loader`; returns (state, mean_loss, metrics).
 
     Device-resident loaders (`device_resident`) yield device batches;
-    streaming loaders are uploaded and normalized by `_device_batches`."""
+    streaming loaders are uploaded and normalized by `_device_batches`.
+    Under a mesh each batch is this rank's rows, the step's loss is global
+    and the metrics are the global rows'."""
     if getattr(loader, "device_resident", False):
         batches = iter(loader)
     else:
-        batches = _device_batches(loader, device, normalizer, prefetch_depth)
+        batches = _device_batches(loader, device, normalizer, prefetch_depth, mesh)
 
     losses, labels_l, masks_l, probs_l = [], [], [], []
     for batch in batches:
@@ -127,21 +155,26 @@ def _run_epoch(step_fn, state, loader, device, *, train, class_weights=None,
         labels_l.append(batch["label"])
 
     # one device -> host fetch for the epoch
-    probs = torch.cat(probs_l).cpu().numpy()
-    mask = torch.cat(masks_l).cpu().numpy() > 0
-    labels = torch.cat(labels_l).cpu().numpy()
+    probs, mask, labels = collect_rows(probs_l, masks_l, labels_l, mesh)
     mean_loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
     return state, mean_loss, _epoch_metrics(probs, labels, mask)
 
 
 def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
-             verbose=True, device: str | torch.device = "cuda"):
-    """Run the full CV pipeline. Returns (test_results, checkpoint_dir).
+             verbose=True, device: str | torch.device = "cuda", mesh=None):
+    """Run the full CV pipeline. Returns (test_results, checkpoint_dir);
+    (None, checkpoint_dir) on a rank outside the mesh.
 
     `model_factory()` builds a fresh model per fold (default: the config's
     ResNet3D, initial weights seeded with seed + fold); `records` replaces
-    the manifest; `loader` replaces the NIfTI volume loader."""
+    the manifest; `loader` replaces the NIfTI volume loader; `mesh` (by
+    default `make_mesh(cfg.mesh_shape)` under a process group) spreads
+    each batch over the ranks."""
     dev = resolve_device(device)
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None, cfg.checkpoint_dir
+    verbose = verbose and main
     np.random.seed(cfg.seed)
     if records is None:
         records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task,
@@ -158,11 +191,11 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
                   "(flip + rotate + zoom, ops/augment.py)")
         device_ds = build_device_dataset(tr_val, device=dev, loader=loader,
                                          store_dtype=np.float32,
-                                         num_threads=cfg.loader_threads)
+                                         num_threads=cfg.loader_threads, mesh=mesh)
         subj_to_idx = {r["Subject"]: i for i, r in enumerate(tr_val)}
         subjects = [r["Subject"] for r in tr_val]
 
-    logger = CVLogger(cfg.checkpoint_dir)
+    logger = cv_logger(main, cfg.checkpoint_dir)
     tf_train, tf_eval = make_transforms(cfg.augment, seed=cfg.seed)
     schedule = make_epoch_schedule(cfg.lr, cfg.num_epochs, cfg.warmup_frac,
                                    cfg.min_lr_factor)
@@ -200,7 +233,7 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
             print(f"[Warning] no pretrained file at {cfg.pretrain_path}")
         state = create_train_state(model.to(dev), schedule, cfg.weight_decay,
                                    cfg.grad_clip_norm, "adam",
-                                   dropout_seed=cfg.seed * 1000 + fold)
+                                   dropout_seed=cfg.seed * 1000 + fold, mesh=mesh)
         cw = torch.from_numpy(class_weight_vector(
             [d["label"] for d in train_data], cfg.nb_class)).to(dev)
 
@@ -233,17 +266,17 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
                 state, tr_loss, tr_m = _run_epoch(
                     train_step, state, loader_tr, dev, train=True,
                     class_weights=cw, normalizer=cfg.normalizer,
-                    prefetch_depth=cfg.prefetch_depth, timer=step_timer)
+                    prefetch_depth=cfg.prefetch_depth, timer=step_timer, mesh=mesh)
             if cfg.precise_bn:
                 if getattr(loader_tr, "device_resident", False):
                     stat_batches = iter(loader_tr)
                 else:
                     stat_batches = _device_batches(loader_tr, dev, cfg.normalizer,
-                                                   cfg.prefetch_depth)
+                                                   cfg.prefetch_depth, mesh)
                 recompute_batch_stats(state, stat_batches)
             _, vl_loss, vl_m = _run_epoch(
                 eval_step, state, loader_vl, dev, train=False,
-                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth)
+                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth, mesh=mesh)
 
             lr_now = state.lr()  # schedule(epoch), as the TPU package logs it
             next_epoch(state)
@@ -259,13 +292,14 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
             score = model_selection_score(vl_m, cfg.best_metric_weights)
             if score > best_metric:
                 best_metric = score
-                ckpt.save_checkpoint(
-                    best_path, state,
-                    metrics={"train_auc": tr_m["AUC"], "val_auc": vl_m["AUC"],
-                             "val_loss": vl_loss, "current_metric": score,
-                             "epoch": epoch},
-                    config=cfg.to_dict())
-            if cfg.resume:  # rolling resume point
+                if main:
+                    ckpt.save_checkpoint(
+                        best_path, state,
+                        metrics={"train_auc": tr_m["AUC"], "val_auc": vl_m["AUC"],
+                                 "val_loss": vl_loss, "current_metric": score,
+                                 "epoch": epoch},
+                        config=cfg.to_dict())
+            if cfg.resume and main:  # rolling resume point
                 ckpt.save_checkpoint(
                     last_path, state,
                     metrics={"epoch": epoch, "best_metric": best_metric},
@@ -276,25 +310,34 @@ def train_cv(cfg: Config, model_factory=None, records=None, loader=None,
             print(f"Fold{fold} train-step timing: mean={st['mean_s']*1000:.1f}ms "
                   f"p50={st['p50_s']*1000:.1f}ms p95={st['p95_s']*1000:.1f}ms "
                   f"({st['steps']} steps)")
-        ckpt.save_checkpoint(
-            final_path, state,
-            metrics={"train_auc": tr_m["AUC"], "val_auc": vl_m["AUC"],
-                     "val_loss": vl_loss},
-            config=cfg.to_dict())
+        if main:
+            ckpt.save_checkpoint(
+                final_path, state,
+                metrics={"train_auc": tr_m["AUC"], "val_auc": vl_m["AUC"],
+                         "val_loss": vl_loss},
+                config=cfg.to_dict())
+        pmesh.barrier(mesh, dev)  # the fold's checkpoints are on disk
 
     logger.close()
     results = test_models(cfg, test_data, model_factory=model_factory,
-                          loader=loader, verbose=verbose, device=dev)
+                          loader=loader, verbose=verbose, device=dev, mesh=mesh)
     return results, cfg.checkpoint_dir
 
 
 def test_models(cfg: Config, test_data, model_factory=None, loader=None,
-                verbose=True, plot=True, device: str | torch.device = "cuda"):
+                verbose=True, plot=True, device: str | torch.device = "cuda", mesh=None):
     """Per-fold test evaluation of each `best_fold{k}` + pooled ROC
     (reference train_ResNet3D.py:335-446, test.py:107-209): binary tasks
     decide by prob > 0.5 (train_ResNet3D.py:388), multiclass by argmax.
-    Returns {'avg', 'std', 'per_fold', 'pooled'}."""
+    Returns {'avg', 'std', 'per_fold', 'pooled'} (None on a rank outside
+    the mesh). Under a mesh each rank evaluates its rows of every batch,
+    every rank gets the global results, and the mesh's first rank alone
+    prints and plots."""
     dev = resolve_device(device)
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None
+    verbose = verbose and main
     loader_te = VolumeBatcher(test_data, batch_size=cfg.batch_size,
                               num_threads=cfg.loader_threads,
                               loader=loader or load_volume)
@@ -305,19 +348,19 @@ def test_models(cfg: Config, test_data, model_factory=None, loader=None,
         weights, _ = ckpt.restore_state(
             os.path.join(cfg.checkpoint_dir, f"best_fold{fold}"))
         model.load_state_dict(weights)
-        state = TrainState(model.to(dev), optimizer=None, schedule=None)
+        state = TrainState(model.to(dev), optimizer=None, schedule=None, mesh=mesh)
 
         probs_l, masks_l, labels_l = [], [], []
         for batch in _device_batches(loader_te, dev, cfg.normalizer,
-                                     cfg.prefetch_depth):
+                                     cfg.prefetch_depth, mesh):
             _, p = eval_step(state, batch)
             probs_l.append(p)
             masks_l.append(batch["mask"])
             labels_l.append(batch["label"])
         # one end-of-pass host fetch
-        mask = torch.cat(masks_l).cpu().numpy() > 0
-        prob_mat = torch.cat(probs_l).cpu().numpy()[mask]
-        labels = torch.cat(labels_l).cpu().numpy()[mask].tolist()
+        prob_mat, mask, labels = collect_rows(probs_l, masks_l, labels_l, mesh)
+        prob_mat = prob_mat[mask]
+        labels = labels[mask].tolist()
 
         if prob_mat.shape[-1] > 2:
             probs = prob_mat.tolist()
@@ -344,7 +387,7 @@ def test_models(cfg: Config, test_data, model_factory=None, loader=None,
         for k in METRIC_KEYS:
             print(f"{k}: {avg[k]:.4f} ± {std[k]:.4f}")
 
-    if plot and fold_curves and np.ndim(fold_curves[0][1][0]) == 0:
+    if plot and main and fold_curves and np.ndim(fold_curves[0][1][0]) == 0:
         # the pooled ROC is a binary-task artifact
         try:
             _plot_roc(fold_curves, all_labels, all_probs,

@@ -21,9 +21,12 @@ Per fold of the seed-42 CV skeleton (train/cv.py's splits):
   package scores the class-1 column).
 
 A ragged last batch is padded with real rows: BatchNorm sees them, the
-loss and the metrics mask them out, as in the TPU package. The TPU
-package's `mesh` argument is `device` here (one card; runs on it unless
-``device="cpu"`` is given).
+loss and the metrics mask them out, as in the TPU package. Runs on the
+card unless ``device="cpu"`` is given; under a mesh (by default
+`make_mesh(cfg.mesh_shape)` under a process group) each rank trains on
+its rows of every batch as train_cv does (global BatchNorm, losses and
+metrics; the mesh's first rank writes the CSV and the checkpoints; each
+rank fits the same table embedder).
 """
 
 from __future__ import annotations
@@ -40,11 +43,12 @@ from ..data.adni import ADNIManifest
 from ..data.pipeline import VolumeBatcher, load_volume
 from ..data.splits import stratified_kfold, stratified_test_split
 from ..data.transforms import make_transforms
-from ..utils.logging import CVLogger
+from ..parallel import mesh as pmesh
+from ..utils.logging import cv_logger
 from . import checkpoint as ckpt
 from .cv import _run_epoch, class_weight_vector
-from .loop import (TrainState, apply_gradients, create_train_state, make_epoch_schedule,
-                   masked_ce, next_epoch, weighted_ce)
+from .loop import (TrainState, apply_gradients, backward_weighted_ce, create_train_state,
+                   make_epoch_schedule, masked_ce, next_epoch)
 from .metrics import METRIC_KEYS, model_selection_score
 
 
@@ -84,21 +88,23 @@ def make_fusion_steps(arch: str = "cross_transformer", use_pet: bool = False,
     """(train_step(state, batch, class_weights) -> (loss, probs),
     eval_step(state, batch) -> (loss, probs)) on the port's TrainState, the
     model fed the batch's image and, per `arch` and modality set, its 'pet'
-    and 'table'. Both keep their outputs on the device."""
+    and 'table'. Both keep their outputs on the device; under a mesh the
+    losses are global and the probabilities this rank's rows'."""
     def train_step(state: TrainState, batch: dict, class_weights):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(batch["image"], **_inputs(batch, arch, use_pet, use_table)).float()
-        loss = weighted_ce(logits, batch["label"], class_weights, batch["mask"])
-        loss.backward()
+        logits = state.train_module(batch["image"],
+                                    **_inputs(batch, arch, use_pet, use_table)).float()
+        loss = backward_weighted_ce(state, logits, batch, class_weights)
         apply_gradients(state)
-        return loss.detach(), torch.softmax(logits.detach(), dim=-1)
+        return loss, torch.softmax(logits.detach(), dim=-1)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
         state.model.eval()
         logits = state.model(batch["image"], **_inputs(batch, arch, use_pet, use_table)).float()
-        return masked_ce(logits, batch["label"], batch["mask"]), torch.softmax(logits, dim=-1)
+        return (masked_ce(logits, batch["label"], batch["mask"], state.mesh),
+                torch.softmax(logits, dim=-1))
 
     return train_step, eval_step
 
@@ -137,16 +143,21 @@ def _check_arch(arch, use_pet, use_table):
 def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
                     table_data=None, model_kw=None, records=None,
                     device: str | torch.device = "cuda", loader=None, embedder=None,
-                    verbose=True, arch: str = "cross_transformer"):
+                    verbose=True, arch: str = "cross_transformer", mesh=None):
     """CV training of a fusion model; returns (best score per fold,
-    checkpoint_dir).
+    checkpoint_dir); (None, checkpoint_dir) on a rank outside the mesh.
 
     arch: 'cross_transformer' (models/transformer.py) or 'daft'
     (models/daft.py; requires use_table=True, no PET). table_data: (X, y,
     subjects) for the clinical branch, subjects matching the manifest's
-    Subject ids. `loader` replaces the NIfTI volume loader."""
+    Subject ids. `loader` replaces the NIfTI volume loader; `mesh` as
+    train_cv's."""
     _check_arch(arch, use_pet, use_table)
     dev = resolve_device(device)
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None, cfg.checkpoint_dir
+    verbose = verbose and main
     np.random.seed(cfg.seed)
     if records is None:
         records = ADNIManifest(cfg.label_file, cfg.mri_dir, cfg.task, cfg.augment,
@@ -154,7 +165,7 @@ def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
                                verbose=verbose).data_dict
     tr_val, _ = stratified_test_split(records, cfg.split_ratio, cfg.seed)
     train_step, eval_step = make_fusion_steps(arch, use_pet, use_table)
-    logger = CVLogger(cfg.checkpoint_dir, csv_name="fusion_results.csv")
+    logger = cv_logger(main, cfg.checkpoint_dir, csv_name="fusion_results.csv")
     tf_train, tf_eval = make_transforms(cfg.augment, seed=cfg.seed)
     schedule = make_epoch_schedule(cfg.lr, cfg.num_epochs, cfg.warmup_frac, cfg.min_lr_factor)
     batcher_kw = dict(batch_size=cfg.batch_size, num_threads=cfg.loader_threads,
@@ -175,7 +186,7 @@ def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
                                   seed=cfg.seed + fold)
         state = create_train_state(model.to(dev), schedule, cfg.weight_decay,
                                    cfg.grad_clip_norm, "adam",
-                                   dropout_seed=cfg.seed * 131 + fold)
+                                   dropout_seed=cfg.seed * 131 + fold, mesh=mesh)
         cw = torch.from_numpy(class_weight_vector(
             [d["label"] for d in train_data], cfg.nb_class)).to(dev)
 
@@ -184,10 +195,10 @@ def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
             t0 = time.time()
             state, tr_loss, tr_m = _run_epoch(
                 train_step, state, loader_tr, dev, train=True, class_weights=cw,
-                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth)
+                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth, mesh=mesh)
             _, vl_loss, vl_m = _run_epoch(
                 eval_step, state, loader_vl, dev, train=False,
-                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth)
+                normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth, mesh=mesh)
             lr_now = state.lr()
             next_epoch(state)
             logger.log_epoch(fold, epoch, tr_m, tr_loss, vl_m, vl_loss, lr_now)
@@ -198,11 +209,13 @@ def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
             score = model_selection_score(vl_m, cfg.best_metric_weights)
             if score > best:
                 best = score
-                ckpt.save_checkpoint(
-                    os.path.join(cfg.checkpoint_dir, f"fusion_best_fold{fold}"), state,
-                    metrics={"val_auc": vl_m["AUC"], "epoch": epoch, "score": score},
-                    config=cfg.to_dict())
+                if main:
+                    ckpt.save_checkpoint(
+                        os.path.join(cfg.checkpoint_dir, f"fusion_best_fold{fold}"), state,
+                        metrics={"val_auc": vl_m["AUC"], "epoch": epoch, "score": score},
+                        config=cfg.to_dict())
         best_scores.append(best)
+        pmesh.barrier(mesh, dev)
     logger.close()
     return best_scores, cfg.checkpoint_dir
 
@@ -210,13 +223,18 @@ def train_fusion_cv(cfg: Config, use_pet: bool = False, use_table: bool = False,
 def test_fusion_models(cfg: Config, test_data, use_pet: bool = False, use_table: bool = False,
                        table_data=None, model_kw=None, device: str | torch.device = "cuda",
                        loader=None, embedder=None, train_subjects=None, verbose=True,
-                       arch: str = "cross_transformer"):
+                       arch: str = "cross_transformer", mesh=None):
     """Evaluation of each fold's `fusion_best_fold{k}` on the held-out test
     split; returns {'avg': the seven metrics averaged over folds,
-    'per_fold': [...]}. `train_subjects` (default: every table subject not
-    in `test_data`) restricts the table embedder's fit to training rows."""
+    'per_fold': [...]} (None on a rank outside the mesh). `train_subjects`
+    (default: every table subject not in `test_data`) restricts the table
+    embedder's fit to training rows; `mesh` as train_cv's."""
     _check_arch(arch, use_pet, use_table)
     dev = resolve_device(device)
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None
+    verbose = verbose and main
     if use_table and table_data is not None and train_subjects is None:
         test_ids = {r["Subject"] for r in test_data}
         train_subjects = [s for s in table_data[2] if s not in test_ids]
@@ -234,9 +252,10 @@ def test_fusion_models(cfg: Config, test_data, use_pet: bool = False, use_table:
         weights, _ = ckpt.restore_state(
             os.path.join(cfg.checkpoint_dir, f"fusion_best_fold{fold}"))
         model.load_state_dict(weights)
-        state = TrainState(model.to(dev), optimizer=None, schedule=None)
+        state = TrainState(model.to(dev), optimizer=None, schedule=None, mesh=mesh)
         _, _, m = _run_epoch(eval_step, state, loader_te, dev, train=False,
-                             normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth)
+                             normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth,
+                             mesh=mesh)
         all_metrics.append(m)
         if verbose:
             print(f"fusion fold {fold} test: ACC={m['ACC']:.4f} AUC={m['AUC']:.4f}")

@@ -21,6 +21,19 @@ Optimization as the TPU package runs it:
 A step runs the model's forward under its own autocast (bf16 over fp32
 parameters by default) and keeps the loss and the probabilities on the
 device: nothing in a step waits for the card.
+
+Under a mesh (parallel/mesh.py; `create_train_state(mesh=)`) each rank
+holds its rows of the global batch. The model's BatchNorms take global
+statistics (`convert_sync_batchnorm`), the forward and backward run on a
+DistributedDataParallel wrapper (``broadcast_buffers=False``: the global
+statistics keep the ranks' running buffers equal), which averages the
+gradients over the ranks inside the backward; clipping and the update
+follow on the averaged gradients, the same on every rank. The losses
+divide by the global weight (or mask) sum: each rank's share is local
+Σ w·nll / global Σ w, scaled by the world size for DDP's average, so a
+ragged batch whose real rows sit on some ranks only weighs each row as one
+process would. The loss a step returns is the global one. Each rank draws
+its own dropout masks (the seed offset by the rank).
 """
 
 from __future__ import annotations
@@ -33,6 +46,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.resnet3d import set_dropout_generator
+from ..parallel import mesh as pmesh
+
+#: per-rank offset of the dropout seed under a mesh (rank 0 keeps the seed)
+DROPOUT_RANK_STRIDE = 1_000_003
 
 
 def make_epoch_schedule(base_lr: float, num_epochs: int, warmup_frac: float = 0.1,
@@ -110,12 +127,15 @@ class TrainState:
     `step` counts optimizer updates (it indexes the schedule, as optax's
     count does, and names the update a checkpoint resumes after); `epoch`
     counts finished epochs (the CV log's rate is ``schedule(epoch)``).
-    `dropout_generator` is the model's dropout stream."""
+    `dropout_generator` is the model's dropout stream. Under a mesh,
+    `mesh` is set and `ddp` is the DistributedDataParallel wrapper of
+    `model` that train steps run (`model` itself is what checkpoints and
+    eval steps use)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedule, grad_clip_norm: float = 1.0,
                  dropout_generator: torch.Generator | None = None,
-                 epoch: int = 0, step: int = 0):
+                 epoch: int = 0, step: int = 0, mesh=None, ddp: nn.Module | None = None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
@@ -123,6 +143,13 @@ class TrainState:
         self.dropout_generator = dropout_generator
         self.epoch = epoch
         self.step = step
+        self.mesh = mesh
+        self.ddp = ddp
+
+    @property
+    def train_module(self) -> nn.Module:
+        """The module a train step runs: the DDP wrapper under a mesh."""
+        return self.ddp if self.ddp is not None else self.model
 
     def lr(self) -> float:
         """The rate the CV log records: ``schedule(epoch)``."""
@@ -131,46 +158,99 @@ class TrainState:
 
 def create_train_state(model: nn.Module, schedule, weight_decay: float = 1e-4,
                        grad_clip_norm: float = 1.0, optimizer: str = "adam",
-                       dropout_seed: int | None = None) -> TrainState:
+                       dropout_seed: int | None = None, mesh=None) -> TrainState:
     """TrainState over `model` (already on its device). With `dropout_seed`
     the model's dropout draws from a generator on that device seeded with
-    it (train_cv seeds it with seed * 1000 + fold)."""
+    it (train_cv seeds it with seed * 1000 + fold; under a mesh, plus
+    `DROPOUT_RANK_STRIDE` times the rank). With `mesh` the BatchNorms turn
+    global and the model is wrapped for DDP, whose construction broadcasts
+    the mesh's first rank's parameters and buffers to the others."""
+    device = next(model.parameters()).device
+    ddp = None
+    rank = 0
+    if mesh is not None:
+        rank = pmesh.data_rank(mesh)
+        pmesh.convert_sync_batchnorm(model, mesh)
+        ddp = nn.parallel.DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            process_group=pmesh.data_group(mesh), broadcast_buffers=False)
     gen = None
     if dropout_seed is not None:
-        device = next(model.parameters()).device
-        gen = torch.Generator(device=device).manual_seed(int(dropout_seed))
+        seed = int(dropout_seed) + DROPOUT_RANK_STRIDE * rank
+        gen = torch.Generator(device=device).manual_seed(seed)
         set_dropout_generator(model, gen)
     opt = make_optimizer(model.parameters(), schedule, weight_decay, optimizer)
-    return TrainState(model, opt, schedule, grad_clip_norm, gen)
+    return TrainState(model, opt, schedule, grad_clip_norm, gen, mesh=mesh, ddp=ddp)
 
 
-def weighted_ce(logits, labels, class_weights, mask):
+def mean_share(num, den, mesh):
+    """(this rank's share of num / den, the global value or None): without
+    a mesh num / max(den, 1e-8) and None; under one num / global den and
+    global num / global den, both sums over the ranks in one all_reduce
+    (outside autograd)."""
+    if mesh is None:
+        return num / den.clamp(min=1e-8), None
+    tot = pmesh.all_reduce_sum(torch.stack([num.detach(), den.detach()]), mesh)
+    den_g = tot[1].clamp(min=1e-8)
+    return num / den_g, tot[0] / den_g
+
+
+def global_mean(num, den, mesh):
+    """num / den over the global batch (sums over this rank's rows)."""
+    loss, total = mean_share(num, den, mesh)
+    return loss if total is None else total
+
+
+def _nll(logits, labels):
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None])[:, 0]
+
+
+def _weighted_sums(logits, labels, class_weights, mask):
+    w = class_weights[labels.long()] * mask
+    return (w * _nll(logits, labels)).sum(), w.sum()
+
+
+def weighted_ce(logits, labels, class_weights, mask, mesh=None):
     """Class-weighted cross entropy over the real rows, reduced as torch's
     CrossEntropyLoss(weight=w) does: sum(w_i * nll_i) / sum(w_i), with the
-    denominator at least 1e-8."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    labels = labels.long()
-    nll = -logp.gather(1, labels[:, None])[:, 0]
-    w = class_weights[labels] * mask
-    return (w * nll).sum() / w.sum().clamp(min=1e-8)
+    denominator at least 1e-8. Under a mesh, this rank's share: its rows'
+    sum over the global sum of w (the shares add up to the global loss)."""
+    return mean_share(*_weighted_sums(logits, labels, class_weights, mask), mesh)[0]
 
 
-def masked_ce(logits, labels, mask):
-    """Unweighted cross entropy averaged over the real rows (evaluation)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1e-8)
+def masked_ce(logits, labels, mask, mesh=None):
+    """Unweighted cross entropy averaged over the real rows (evaluation);
+    under a mesh, the global value."""
+    return global_mean((_nll(logits, labels) * mask).sum(), mask.sum(), mesh)
+
+
+def backward_mean(state: TrainState, num, den):
+    """Backward of the loss num / den (sums over this rank's rows); returns
+    the global loss, detached. Under a mesh the rank's share of the loss is
+    scaled by the world size, which DDP's gradient average divides out."""
+    loss, total = mean_share(num, den, state.mesh)
+    if total is None:
+        loss.backward()
+        return loss.detach()
+    (loss * pmesh.data_size(state.mesh)).backward()
+    return total
+
+
+def backward_weighted_ce(state: TrainState, logits, batch: dict, class_weights):
+    """`backward_mean` of the batch's class-weighted cross entropy."""
+    return backward_mean(state, *_weighted_sums(logits, batch["label"], class_weights,
+                                                batch["mask"]))
 
 
 def forward_backward(state: TrainState, batch: dict, class_weights):
     """Train-mode forward, weighted CE and its gradients. Returns the loss
-    and the float32 logits, detached."""
+    (the global one under a mesh) and this rank's float32 logits,
+    detached."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    logits = state.model(batch["image"]).float()
-    loss = weighted_ce(logits, batch["label"], class_weights, batch["mask"])
-    loss.backward()
-    return loss.detach(), logits.detach()
+    logits = state.train_module(batch["image"]).float()
+    return backward_weighted_ce(state, logits, batch, class_weights), logits.detach()
 
 
 def apply_gradients(state: TrainState):
@@ -187,8 +267,8 @@ def apply_gradients(state: TrainState):
 
 
 def train_step(state: TrainState, batch: dict, class_weights):
-    """One update. Returns (loss, train-mode softmax probabilities), both on
-    the device."""
+    """One update. Returns (loss, train-mode softmax probabilities of this
+    rank's rows), both on the device."""
     loss, logits = forward_backward(state, batch, class_weights)
     apply_gradients(state)
     return loss, torch.softmax(logits, dim=-1)
@@ -196,10 +276,12 @@ def train_step(state: TrainState, batch: dict, class_weights):
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch: dict):
-    """Eval-mode forward. Returns (unweighted masked CE, probabilities)."""
+    """Eval-mode forward. Returns (unweighted masked CE, global under a
+    mesh; this rank's probabilities)."""
     state.model.eval()
     logits = state.model(batch["image"]).float()
-    return masked_ce(logits, batch["label"], batch["mask"]), torch.softmax(logits, dim=-1)
+    return (masked_ce(logits, batch["label"], batch["mask"], state.mesh),
+            torch.softmax(logits, dim=-1))
 
 
 def next_epoch(state: TrainState) -> TrainState:
@@ -219,7 +301,9 @@ def recompute_batch_stats(state: TrainState, batches, max_batches: int | None = 
     parameters (the TPU package inverts flax's EMA for the raw statistics;
     here each BatchNorm runs with ``momentum=None``, torch's cumulative
     average, from reset statistics). Only the BatchNorms run in train mode,
-    so dropout draws nothing. With no batches the state is left as it was."""
+    so dropout draws nothing. With no batches the state is left as it was.
+    Under a mesh the batches are each rank's rows and the statistics are the
+    global batches' (the BatchNorms are global)."""
     model = state.model
     bns = _batchnorms(model)
     saved = [(bn.momentum, bn.running_mean.clone(), bn.running_var.clone(),

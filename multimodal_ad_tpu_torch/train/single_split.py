@@ -11,6 +11,9 @@ counts that optax evaluates at the update count (so the rate is 0 from
 update num_epochs on, train/loop.py), bf16 autocast by default, the
 unet_results.csv log (fold 1), and the best checkpoint by validation AUC
 in `best_model`. Runs on the card unless ``device="cpu"`` is given.
+Under a mesh (by default `make_mesh(cfg.mesh_shape)` under a process
+group) each rank trains on its rows of every batch, as train_cv does; the
+mesh's first rank writes the CSV and the checkpoint.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..data.pipeline import VolumeBatcher, load_volume
 from ..data.splits import stratified_test_split
 from ..data.transforms import make_transforms
 from ..models.unet3d import UNet3DClassifier
-from ..utils.logging import CVLogger
+from ..parallel import mesh as pmesh
+from ..utils.logging import cv_logger
 from . import checkpoint as ckpt
 from .cv import _run_epoch
 from .loop import (cosine_decay_schedule, create_train_state, eval_step, next_epoch,
@@ -44,12 +48,17 @@ def single_split(records, seed: int):
 
 
 def train_unet_classifier(cfg: Config, records=None, loader=None, model=None,
-                          verbose=True, device: str | torch.device = "cuda"):
+                          verbose=True, device: str | torch.device = "cuda", mesh=None):
     """Train on the 64 % split, select by the 16 % split's AUC. Returns
-    (best_val_auc, checkpoint_dir). `model` replaces the config's
-    UNet3DClassifier (base 32, initial weights drawn from a generator seeded
-    with cfg.seed); `records` the manifest; `loader` the NIfTI loader."""
+    (best_val_auc, checkpoint_dir); (None, checkpoint_dir) on a rank outside
+    the mesh. `model` replaces the config's UNet3DClassifier (base 32,
+    initial weights drawn from a generator seeded with cfg.seed); `records`
+    the manifest; `loader` the NIfTI loader; `mesh` as train_cv's."""
     dev = resolve_device(device)
+    mesh, main = pmesh.resolve_mesh(mesh, cfg.mesh_shape, cfg.batch_size)
+    if main is None:
+        return None, cfg.checkpoint_dir
+    verbose = verbose and main
     np.random.seed(cfg.seed)
     if model is None:
         model = UNet3DClassifier(in_channels=cfg.in_channels, num_classes=cfg.nb_class,
@@ -68,10 +77,11 @@ def train_unet_classifier(cfg: Config, records=None, loader=None, model=None,
     loader_vl = VolumeBatcher(val_data, transform=tf_eval, **kw)
 
     state = create_train_state(model.to(dev), cosine_decay_schedule(cfg.lr, max(1, cfg.num_epochs)),
-                               cfg.weight_decay, grad_clip_norm=0.0, optimizer="adamw")
+                               cfg.weight_decay, grad_clip_norm=0.0, optimizer="adamw",
+                               mesh=mesh)
     cw = torch.ones(cfg.nb_class, device=dev)  # plain CE
-    logger = CVLogger(cfg.checkpoint_dir, csv_name="unet_results.csv")
-    run_kw = dict(normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth)
+    logger = cv_logger(main, cfg.checkpoint_dir, csv_name="unet_results.csv")
+    run_kw = dict(normalizer=cfg.normalizer, prefetch_depth=cfg.prefetch_depth, mesh=mesh)
 
     best_auc = -np.inf
     best_path = os.path.join(cfg.checkpoint_dir, "best_model")
@@ -91,8 +101,10 @@ def train_unet_classifier(cfg: Config, records=None, loader=None, model=None,
                   f"AUC={vl_m['AUC']:.4f} | time={time.time() - t0:.1f}s")
         if vl_m["AUC"] > best_auc:  # best by AUC (reference train_unet3d.py:215)
             best_auc = vl_m["AUC"]
-            ckpt.save_checkpoint(best_path, state,
-                                 metrics={"val_auc": vl_m["AUC"], "epoch": epoch},
-                                 config=cfg.to_dict())
+            if main:
+                ckpt.save_checkpoint(best_path, state,
+                                     metrics={"val_auc": vl_m["AUC"], "epoch": epoch},
+                                     config=cfg.to_dict())
     logger.close()
+    pmesh.barrier(mesh, dev)
     return best_auc, cfg.checkpoint_dir

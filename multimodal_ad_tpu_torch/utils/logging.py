@@ -66,3 +66,20 @@ class CVLogger:
 
     def close(self):
         self.tb.close()
+
+
+class NullCVLogger:
+    """A CVLogger that writes nothing: the logger of a rank other than the
+    mesh's first, which alone writes the CSV."""
+
+    def log_epoch(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def cv_logger(main: bool, checkpoint_dir: str, **kwargs):
+    """`CVLogger(checkpoint_dir, **kwargs)` on the writing rank, else a
+    `NullCVLogger`."""
+    return CVLogger(checkpoint_dir, **kwargs) if main else NullCVLogger()

@@ -43,6 +43,10 @@ def _port_modules():
 
 
 def test_imports_with_jax_blocked():
+    # the multi-device layer, the entry points and the examples among them
+    for name in ("multimodal_ad_tpu_torch.parallel.mesh", "multimodal_ad_tpu_torch.entry",
+                 "multimodal_ad_tpu_torch.examples.serve_int8"):
+        assert name in _port_modules()
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',"
@@ -237,6 +241,24 @@ def test_image_side_tools_run_without_sklearn_pandas_matplotlib_or_tensorboard(t
     for path in ("ckpt/cv_results.csv", "enc/adni_features.csv",
                  "enc/feature_map_shapes.csv", "atlas.html"):
         assert os.path.isfile(tmp_path / path), path
+
+
+def test_make_mesh_needs_a_process_group():
+    """Without an initialized process group make_mesh raises, naming the
+    launcher; it never makes a silent world of one. The trainers then run
+    without a mesh."""
+    import torch.distributed as dist
+
+    from multimodal_ad_tpu_torch.parallel.mesh import default_mesh, init_distributed, make_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="initialized process group.*torch.distributed.run"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        make_mesh({"data": 1})
+    assert default_mesh() is None
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA device"):
+        init_distributed(backend="nccl", device="cpu")
 
 
 @pytest.fixture
@@ -1565,3 +1587,65 @@ def test_meta_estimators_on_the_card_match_the_host(cuda):
     np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
     for i in (1, 3, 4):
         np.testing.assert_allclose(out["cuda"][i], out["cpu"][i], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_data_parallel_at_one_rank_on_the_card(cuda, tmp_path):
+    """Phase 19 (a) and (d) of chip_smoke.py at a small size: one NCCL rank
+    (world 1); an fp32 DP train step of ResNet-10 against the plain step on
+    the same weights and batch (DDP at one rank averages over one gradient,
+    and the BatchNorms stay the stock module): the loss rel 1e-6, Adam's
+    first moments and the parameters as
+    test_torch_port_parallel.py::_assert_u_and_params holds them (cuDNN's
+    backward is not bit-reproducible, and Adam's first update moves an
+    element by about lr whatever its gradient's size);
+    `EnsemblePredictor(mesh=)` bf16 and int8 probabilities bit-equal to
+    the mesh-less predictor's."""
+    import torch.distributed as dist
+
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.train import loop
+    from test_torch_port_parallel import _assert_u_and_params
+
+    dev = init_distributed(device="cuda", init_method=f"file://{tmp_path / 'store'}",
+                           rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        g = torch.Generator().manual_seed(0)
+        batch = {"image": torch.randn((4, 24, 28, 24, 1), generator=g).to(dev),
+                 "label": torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev),
+                 "mask": torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)}
+        cw = torch.tensor([0.4, 0.6], device=dev)
+        sd = generate_model(model_depth=10, dropout_rate=0.0, compute_dtype=torch.float32,
+                            generator=torch.Generator().manual_seed(1)).state_dict()
+        out = []
+        for m in (None, mesh):
+            model = generate_model(model_depth=10, dropout_rate=0.0,
+                                   compute_dtype=torch.float32)
+            model.load_state_dict(sd)
+            state = loop.create_train_state(model.to(dev), loop.make_epoch_schedule(1e-3, 10),
+                                            mesh=m)
+            loss, _ = loop.train_step(state, batch, cw)
+            out.append({"loss": float(loss),
+                        "sd": {k: v.cpu() for k, v in model.state_dict().items()},
+                        "u": {k: state.optimizer.state[p]["exp_avg"].cpu() / 0.1
+                              for k, p in model.named_parameters()}})
+        assert out[1]["loss"] == pytest.approx(out[0]["loss"], rel=1e-6)
+        _assert_u_and_params(out[1], out[0], loop.make_epoch_schedule(1e-3, 10)(0))
+
+        vols = torch.randn((6, 24, 28, 24), generator=g).numpy() * 50 + 100
+        folds = [generate_model(model_depth=10, generator=torch.Generator().manual_seed(s))
+                 .state_dict() for s in (2, 3)]
+        probs = []
+        for m in (None, mesh):
+            pred = EnsemblePredictor(generate_model(model_depth=10), folds, batch_size=4,
+                                     device=dev, mesh=m)
+            bf16 = pred.predict_proba(vols)
+            probs.append((bf16, pred.quantize_int8(vols[:2]).predict_proba(vols)))
+        for a, b in zip(*probs):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        dist.destroy_process_group()

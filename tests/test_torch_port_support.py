@@ -12,10 +12,20 @@ The thread count also sets how torch's CPU reductions split their sums. A
 few tests hold float32 statistics of large tensors (BatchNorm moments,
 three train steps) to the JAX package's at a bound met with torch's
 default split, not with one thread's sequential sums; they take
-`default_torch_threads`, which restores the default for their duration."""
+`default_torch_threads`, which restores the default for their duration.
+
+`run_ranks` runs a function in W processes joined in one gloo process
+group (the data-parallel tests): each rank is a `torch.multiprocessing`
+spawn that rendezvouses through a ``file://`` store under the test's
+temporary directory (no ports), caps its threads, and saves what the
+function returns; a rank that raises or outlives the time limit fails the
+test, and the others are killed with it."""
 
 import contextlib
+import importlib
 import os
+import shutil
+import time
 
 import pytest
 import torch
@@ -60,6 +70,50 @@ def default_threads():
 def default_torch_threads():
     with default_threads():
         yield
+
+
+def _rank_main(rank, world, store, module, name, args, out_dir, threads):
+    """One rank of `run_ranks`: join the group, run module.name(*args),
+    save its result."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        result = getattr(importlib.import_module(module), name)(*args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 240.0) -> list:
+    """[fn(*args) of rank 0, ..., of rank world - 1], each rank a spawned
+    process in one gloo group over a file:// store under `tmp_path`. `fn` is
+    a module-level function; a rank that fails, or a run longer than
+    `timeout` seconds, raises (every rank is stopped)."""
+    import torch.multiprocessing as mp
+
+    out = tmp_path / f"ranks-{fn.__name__}-{time.monotonic_ns()}"
+    out.mkdir()
+    threads = max(1, thread_cap() // world)
+    ctx = mp.start_processes(
+        _rank_main, args=(world, str(out / "store"), fn.__module__, fn.__name__, args,
+                          str(out), threads),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    results = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out)  # results hold whole models: keep the disk free
+    return results
 
 
 @pytest.mark.parametrize("cpus,workers,cap",

@@ -228,9 +228,25 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    phase 8's CLI run; (f) `entry.dryrun_multichip(2)` (two gloo ranks on
    the card), `entry.entry()`'s forward and the six port examples on the
    card;
-20. one JSON line {"kernels": [...]} (with each kernel's launches in phase
-   19 by rank and run, `launches_data_parallel`) and, last, the device
-   line.
+20. spatial sharding (parallel/spatial.py), ResNet-18 B at 91x109x91 with
+   the volume's X over a 'space' axis, gloo ranks on the card (spawned):
+   (a) two ranks on {"space": 2}, the fp32 eval forward at B = 2 (slabs
+   of 46 + 45 planes, halo exchanges): logits within 1e-4 of their spread
+   from the unsharded forward, the 'none' head's slabs gathered within
+   1e-4 of the layer-4 map's spread, the bf16 probabilities within 5e-3;
+   (e) `EnsemblePredictor(mesh={"data": 1, "space": 2})` over phase 4's
+   five folds, bf16 then int8 (K3): rank 0's bit-equal to the mesh-less
+   predictor in the same process, rank 1's within 5e-3; (b) four ranks on {"data": 2, "space": 2}, one
+   fp32 step on a global batch of 8 from the resident corpus (each rank's
+   K1 once on its data row's 4 rows whole, then its slab) against the
+   one-process step (loss rel 1e-6, the first moments within `W2_U_BOUND`
+   of their norm, `adam_rule`'s element rule), the four ranks' parameters
+   and buffers equal, then the bf16 step's time (median of 3 after 1) with
+   its exchanges and halo MB a step; (c) the same on a ragged batch (5 real
+   rows); (d) `entry.dryrun_multichip(4)` over four gloo ranks on the card;
+21. one JSON line {"kernels": [...]} (with each kernel's launches in phase
+   19 by rank and run, `launches_data_parallel`, and in phase 20,
+   `launches_spatial`) and, last, the device line.
 
 Every streamed path of phases 7, 9 (cli.train_unet3d), 10, 13 and 17 prints
 VolumeBatcher's decodes by reader and fails unless they are all native;
@@ -2707,13 +2723,14 @@ def adam_rule(torch, a, b, lr0, u_bound=1e-5):
 W2_U_BOUND = 1e-3
 
 
-def _dp_fresh_state(torch, dev, sd, mesh):
+def _dp_fresh_state(torch, dev, sd, mesh, spatial=False):
     from multimodal_ad_tpu_torch.models.resnet3d import generate_model
     from multimodal_ad_tpu_torch.train import loop
 
     model = generate_model(model_depth=18, dropout_rate=0.0, compute_dtype=torch.float32)
     model.load_state_dict(sd)
-    return loop.create_train_state(model.to(dev), loop.make_epoch_schedule(1e-3, 20), mesh=mesh)
+    return loop.create_train_state(model.to(dev), loop.make_epoch_schedule(1e-3, 20), mesh=mesh,
+                                   spatial=spatial)
 
 
 def _timed_steps(torch, state, batch, cw, n=14, warmup=2):
@@ -3105,6 +3122,294 @@ def data_parallel_phase(torch, dev, card, work, ctx):
     out["launches_data_parallel"] = launches
     out["seconds"] = time.time() - t_phase
     log(f"phase 19: {out['seconds']:.1f} s")
+    return out
+
+
+# Phase 20's bounds against the unsharded run on the same card: the fp32
+# forward's logits and layer-4 map within SP_FWD_BOUND of their spread
+# (cuDNN takes other algorithms on slabs: not bit-equal), the bf16
+# probabilities within SP_BF16_BOUND, the fp32 2-D step's loss within
+# SP_LOSS_REL (the first moments within W2_U_BOUND, as phase 19's).
+SP_FWD_BOUND = 1e-4
+SP_BF16_BOUND = 5e-3
+SP_LOSS_REL = 1e-6
+SP_FWD_BATCH = 2
+
+
+def _sp_forward_and_serving(torch, dev, a, rank):
+    """Phase 20 (a) and (e) on one of two ranks: {"space": 2}."""
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.ops import int8_conv as k3
+    from multimodal_ad_tpu_torch.parallel import mesh as pmesh
+    from multimodal_ad_tpu_torch.parallel.spatial import HaloExchange, convert_spatial
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+
+    res = {}
+    mesh = pmesh.make_mesh({"space": 2})
+    sh = pmesh.spatial_sharding(mesh)
+    sd = torch.load(a["sd"], weights_only=False)
+    x = torch.load(a["x_fwd"], weights_only=False).to(dev)
+
+    def model(head, dtype):
+        m = ResNet3D(depth=18, head=head, compute_dtype=dtype)
+        m.load_state_dict({k: v for k, v in sd.items()
+                           if head == "classifier" or not k.startswith("conv_seg")})
+        return m.to(dev).eval()
+
+    with torch.no_grad():
+        HaloExchange.exchanges = HaloExchange.bytes = 0
+        logits = convert_spatial(model("classifier", torch.float32), mesh)(sh.slab(x))
+        torch.cuda.synchronize()
+        res["fwd_exchanges"], res["fwd_halo_bytes"] = HaloExchange.exchanges, HaloExchange.bytes
+        slab, bounds = convert_spatial(model("none", torch.float32), mesh)(sh.slab(x))
+        res["none_slab"] = (tuple(slab.shape), bounds)
+        feats = sh.gather(slab.contiguous())
+        probs = torch.softmax(convert_spatial(model("classifier", torch.bfloat16), mesh)(
+            sh.slab(x)), dim=-1)
+        res["logits"], res["probs_bf16"] = logits.cpu(), probs.cpu()
+        if rank == 0:
+            ref = model("classifier", torch.float32)(x)
+            ref_feats = model("none", torch.float32)(x)
+            ref_probs = torch.softmax(model("classifier", torch.bfloat16)(x), dim=-1)
+            res["logits_err"] = float((logits - ref).abs().max() / (ref.max() - ref.min()))
+            res["feats_err"] = float((feats - ref_feats).abs().max()
+                                     / (ref_feats.max() - ref_feats.min()))
+            res["probs_bf16_err"] = float((probs - ref_probs).abs().max())
+            res["ref_logits"] = ref.cpu()
+        del feats, slab
+    torch.cuda.empty_cache()
+
+    # (e) the predictor on {"data": 1, "space": 2}: the batch replicated over
+    # 'space'; rank 0 holds it to the mesh-less predictor in this process
+    mesh2 = pmesh.make_mesh({"data": 1, "space": 2})
+    vols = np.load(a["vols"])
+    preds = {"mesh": EnsemblePredictor.from_checkpoint_dir(a["ckpt_dir"], batch_size=BATCH,
+                                                           device=dev, mesh=mesh2)}
+    if rank == 0:
+        preds["plain"] = EnsemblePredictor.from_checkpoint_dir(a["ckpt_dir"], batch_size=BATCH,
+                                                               device=dev)
+    out = {}
+    for tag, pred in preds.items():
+        fg.gather_normalize.launches = 0
+        bf16 = pred.predict_proba(vols)
+        k1_bf16 = fg.gather_normalize.launches
+        pred.quantize_int8(vols[:4])
+        fg.gather_normalize.launches = k3.conv_i8.launches = 0
+        q8 = pred.predict_proba(vols)
+        torch.cuda.synchronize()
+        out[tag] = {"bf16": bf16, "int8": q8, "k1": k1_bf16 + fg.gather_normalize.launches,
+                    "k3": k3.conv_i8.launches}
+    res["predictor"] = out
+    return res
+
+
+def _sp_train(torch, dev, a, rank):
+    """Phase 20 (b) and (c) on one of four ranks: {"data": 2, "space": 2}."""
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.parallel import mesh as pmesh
+    from multimodal_ad_tpu_torch.parallel.spatial import HaloExchange
+    from multimodal_ad_tpu_torch.train import loop
+
+    res = {"coords": None}
+    mesh = pmesh.make_mesh({"data": 2, "space": 2})
+    res["coords"] = (pmesh.data_rank(mesh), pmesh.space_rank(mesh))
+    sd = torch.load(a["sd"], weights_only=False)
+    vols8, labels8 = np.load(a["vols8"]), a["labels8"]
+    cw = torch.tensor([0.5, 0.5], device=dev)
+    lr0 = loop.make_epoch_schedule(1e-3, 20)(0)
+    ds = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32, mesh=mesh)
+    for name, idx in (("full", np.arange(BATCH)), ("ragged", np.arange(5))):
+        fg.gather_normalize.launches = 0
+        batch = next(iter(DeviceEpochIterator(ds, idx, BATCH, spatial=1)))  # K1, then the slab
+        torch.cuda.synchronize()
+        r = {"k1": fg.gather_normalize.launches, "slab": tuple(batch["image"].shape),
+             "real": float(batch["mask"].sum())}
+        state = _dp_fresh_state(torch, dev, sd, mesh, spatial=True)
+        HaloExchange.exchanges = HaloExchange.bytes = 0
+        loss, _ = loop.train_step(state, batch, cw)
+        r["loss"] = float(loss)
+        r["exchanges"], r["halo_bytes"] = HaloExchange.exchanges, HaloExchange.bytes
+        r["param_sums"] = [float(p.detach().double().sum()) for p in state.model.parameters()]
+        r["buffer_sums"] = [float(b.double().sum()) for b in state.model.buffers()]
+        if rank == 0:  # the one-process step at the global batch
+            ds1 = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32)
+            ref_state = _dp_fresh_state(torch, dev, sd, None)
+            ref_loss, _ = loop.train_step(ref_state, next(iter(
+                DeviceEpochIterator(ds1, idx, BATCH))), cw)
+            r["ref_loss"] = float(ref_loss)
+            r["check"] = adam_rule(torch, state, ref_state, lr0, W2_U_BOUND)
+            del ref_state, ds1
+        del state
+        torch.cuda.empty_cache()
+        if name == "full":  # the flagship's training precision, timed
+            model = generate_model(model_depth=18, compute_dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(SEED + 20)).to(dev)
+            st = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20),
+                                         dropout_seed=SEED + 20, mesh=mesh, spatial=True)
+            loop.train_step(st, batch, cw)  # warm-up
+            torch.cuda.synchronize()
+            HaloExchange.exchanges = HaloExchange.bytes = 0
+            r["bf16_step_ms"] = _timed_steps(torch, st, batch, cw, n=3, warmup=0)
+            r["bf16_exchanges_per_step"] = HaloExchange.exchanges / 3
+            r["bf16_halo_mb_per_step"] = HaloExchange.bytes / 3 / 1e6
+            del st, model
+            torch.cuda.empty_cache()
+        res[name] = r
+    return res
+
+
+def _sp_rank(rank, world, store, args_path, out_dir):
+    """One of phase 20's gloo ranks, all on cuda:0: (a) and (e) at two
+    ranks, (b) and (c) at four. cuDNN's autotuning is off in these ranks
+    (heuristic algorithms): each rank would tune every slab shape anew."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from multimodal_ad_tpu_torch.parallel import mesh as pmesh
+
+    dev = pmesh.init_distributed(backend="gloo", device="cuda:0",
+                                 init_method=f"file://{store}", rank=rank, world_size=world)
+    torch.backends.cudnn.benchmark = False
+    try:
+        a = torch.load(args_path, weights_only=False)
+        res = (_sp_forward_and_serving if world == 2 else _sp_train)(torch, dev, a, rank)
+        torch.save(res, os.path.join(out_dir, f"sp{world}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_phase(torch, dev, card, work, ctx):
+    """Phase 20: spatial sharding and the 2-D mesh at full width (see the
+    module docstring)."""
+    import torch.multiprocessing as mp
+
+    from multimodal_ad_tpu_torch.data.pipeline import load_volume
+    from multimodal_ad_tpu_torch.entry import dryrun_multichip
+    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
+
+    t_phase = time.time()
+    log("== 20. spatial sharding: ResNet-18 B at 91x109x91, the volume's X over a 'space' "
+        "axis (halo exchanges), gloo ranks on cuda:0")
+    spw = os.path.join(work, "sp")
+    os.makedirs(spw)
+    out = {}
+    launches = {"K1": {}, "K2": {}, "K3": {}}
+    tr_val = ctx["tr_val"]
+    vols8 = np.stack([load_volume(r["MRI"]) for r in tr_val[:BATCH]])[..., None]
+    labels8 = np.array([r["label"] for r in tr_val[:BATCH]])
+    sd = generate_model(model_depth=18, dropout_rate=0.0, compute_dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(SEED + 20)).state_dict()
+    x_fwd = scale_intensity(torch.from_numpy(vols8[:SP_FWD_BATCH]).float().to(dev)).cpu()
+    args = {"sd": os.path.join(spw, "sd.pt"), "x_fwd": os.path.join(spw, "x_fwd.pt"),
+            "vols8": os.path.join(spw, "vols8.npy"), "labels8": labels8,
+            "vols": os.path.join(spw, "vols.npy"), "ckpt_dir": ctx["ckpt_dir"]}
+    torch.save(sd, args["sd"])
+    torch.save(x_fwd, args["x_fwd"])
+    np.save(args["vols8"], vols8)
+    np.save(args["vols"], ctx["vols"])
+    torch.save(args, os.path.join(spw, "args.pt"))
+
+    def spawn(world):
+        t0 = time.time()
+        mp.start_processes(_sp_rank, args=(world, os.path.join(spw, f"store{world}"),
+                                           os.path.join(spw, "args.pt"), spw),
+                           nprocs=world, join=True, start_method="spawn")
+        return ([torch.load(os.path.join(spw, f"sp{world}-rank{r}.pt"), weights_only=False)
+                 for r in range(world)], time.time() - t0)
+
+    # ---- (a), (e): two ranks, {"space": 2} and {"data": 1, "space": 2} ------
+    r2, out["spawn2_s"] = spawn(2)
+    a0 = r2[0]
+    same_logits = bool(torch.equal(r2[0]["logits"], r2[1]["logits"]))
+    out["a"] = {k: a0[k] for k in ("logits_err", "feats_err", "probs_bf16_err", "fwd_exchanges",
+                                   "fwd_halo_bytes")}
+    out["a"]["none_slabs"] = [r["none_slab"] for r in r2]
+    log(f"(a) {{'space': 2}} fp32 forward at B = {SP_FWD_BATCH}: logits "
+        f"{a0['logits_err']:.3g} of their spread from the unsharded forward (bound "
+        f"{SP_FWD_BOUND:g}), the same on both ranks {same_logits}; the 'none' head's slabs "
+        f"{[r['none_slab'] for r in r2]}, gathered {a0['feats_err']:.3g} of the layer-4 map's "
+        f"spread; bf16 probabilities {a0['probs_bf16_err']:.3g} (bound {SP_BF16_BOUND:g}); "
+        f"{a0['fwd_exchanges']} exchanges, {a0['fwd_halo_bytes'] / 1e6:.2f} MB of halo "
+        "planes a rank a forward")
+    check(a0["logits_err"] <= SP_FWD_BOUND and a0["feats_err"] <= SP_FWD_BOUND
+          and a0["probs_bf16_err"] <= SP_BF16_BOUND and same_logits,
+          f"the spatial forward misses the unsharded one: {out['a']}")
+    p = [r["predictor"] for r in r2]
+    bit_equal = all(np.array_equal(p[0]["mesh"][k], p[0]["plain"][k]) for k in ("bf16", "int8"))
+    # each space rank computes the replicated batch in its own process, where
+    # cuDNN may take other algorithms: the ranks agree to the 4-row bound of
+    # phase 19, not to the bit
+    ranks_d = max(float(np.abs(p[0]["mesh"][k] - p[1]["mesh"][k]).max()) for k in ("bf16", "int8"))
+    for r in (0, 1):
+        launches["K1"][f"space2_rank{r}_serving"] = p[r]["mesh"]["k1"]
+        launches["K3"][f"space2_rank{r}_serving"] = p[r]["mesh"]["k3"]
+    out["e"] = {"bit_equal": bit_equal, "ranks_max_abs": ranks_d,
+                "k1": [p[r]["mesh"]["k1"] for r in (0, 1)],
+                "k3": [p[r]["mesh"]["k3"] for r in (0, 1)]}
+    log(f"(e) EnsemblePredictor(mesh={{'data': 1, 'space': 2}}) over phase 4's {N_FOLDS} folds, "
+        f"{len(ctx['vols'])} volumes, bf16 then int8: rank 0 bit-equal to the mesh-less "
+        f"predictor in its process {bit_equal}; rank 1 max |dprob| {ranks_d:.3g} from rank 0 "
+        f"(bound {SP_BF16_BOUND:g}); K1 {out['e']['k1']}, K3 {out['e']['k3']} by rank")
+    chunks = -(-len(ctx["vols"]) // BATCH)
+    check(bit_equal and ranks_d <= SP_BF16_BOUND,
+          f"the predictor on a space axis differs from the mesh-less one: {out['e']}")
+    check(all(p[r]["mesh"]["k3"] == 19 * N_FOLDS * chunks for r in (0, 1)),
+          f"int8 serving on a space axis ran K3 {out['e']['k3']} times")
+    log(f"    the two-rank spawn took {out['spawn2_s']:.1f} s")
+
+    # ---- (b), (c): four ranks, {"data": 2, "space": 2} ---------------------
+    r4, out["spawn4_s"] = spawn(4)
+    rows = BATCH // 2
+    for name in ("full", "ragged"):
+        rs = [r[name] for r in r4]
+        c = rs[0]["check"]
+        equal_ranks = all(r["param_sums"] == rs[0]["param_sums"]
+                          and r["buffer_sums"] == rs[0]["buffer_sums"] for r in rs[1:])
+        rel = abs(rs[0]["loss"] - rs[0]["ref_loss"]) / abs(rs[0]["ref_loss"])
+        out[name] = dict(c, loss=rs[0]["loss"], ref_loss=rs[0]["ref_loss"], loss_rel=rel,
+                         ranks_equal=equal_ranks, k1=[r["k1"] for r in rs],
+                         slabs=[r["slab"] for r in rs], real=[r["real"] for r in rs],
+                         exchanges=rs[0]["exchanges"], halo_mb=rs[0]["halo_bytes"] / 1e6)
+        tag = "b" if name == "full" else "c"
+        log(f"({tag}) {{'data': 2, 'space': 2}} fp32 step, {name} batch (real rows by data row "
+            f"{[r['real'] for r in rs[::2]]}), slabs {[r['slab'] for r in rs]}: loss "
+            f"{rs[0]['loss']:.7f} vs one process {rs[0]['ref_loss']:.7f} (rel {rel:.3g}, bound "
+            f"{SP_LOSS_REL:g}); |du| {c['du_rel']:.3g} of |u| (bound {W2_U_BOUND:g}); "
+            f"parameters {c['big_max_over_lr']:.3g} lr / {c['loose_max_over_lr']:.3g} lr "
+            f"({100 * c['loose_share']:.3f} % loose); BN statistics {c['bn_stats_max']:.3g}; the "
+            f"four ranks' parameters and buffers equal {equal_ranks}; K1 by rank "
+            f"{[r['k1'] for r in rs]}; {rs[0]['exchanges']} exchanges, "
+            f"{rs[0]['halo_bytes'] / 1e6:.1f} MB of halo a rank")
+        check(c["ok"] and rel <= SP_LOSS_REL, f"the 2-D {name} step differs: {out[name]}")
+        check(equal_ranks, f"the four ranks' models differ after the {name} step")
+        check(all(r["k1"] == 1 and r["slab"][0] == rows for r in rs),
+              f"K1 per rank {[r['k1'] for r in rs]} on {[r['slab'] for r in rs]}")
+        for r, rr in enumerate(rs):
+            launches["K1"][f"data2_space2_rank{r}_step_{name}"] = rr["k1"]
+    full0 = r4[0]["full"]
+    out["bf16_step_ms"] = full0["bf16_step_ms"]
+    out["bf16_exchanges_per_step"] = full0["bf16_exchanges_per_step"]
+    out["bf16_halo_mb_per_step"] = full0["bf16_halo_mb_per_step"]
+    log(f"    bf16 2-D step (4 gloo ranks on one card, slabs {[r['full']['slab'] for r in r4]}): "
+        f"{full0['bf16_step_ms']:.1f} ms (CUDA events on rank 0, median of 3 after 1), "
+        f"{full0['bf16_exchanges_per_step']:.0f} exchanges and "
+        f"{full0['bf16_halo_mb_per_step']:.1f} MB of halo a rank a step; the four-rank spawn "
+        f"took {out['spawn4_s']:.1f} s on {card}")
+
+    # ---- (d) the dry run over four gloo ranks on the card ------------------
+    t0 = time.time()
+    loss = dryrun_multichip(4)
+    out["dryrun"] = {"loss": loss, "seconds": time.time() - t0}
+    check(np.isfinite(loss), f"dryrun_multichip(4) loss {loss}")
+    log(f"(d) dryrun_multichip(4): loss {loss:.4f} in {out['dryrun']['seconds']:.1f} s")
+    out["launches_spatial"] = launches
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 20: {out['seconds']:.1f} s")
     return out
 
 
@@ -3875,9 +4180,13 @@ def main() -> int:
         "train_launches": train_launches, "ckpt_dir": ckpt_dir, "vols": vols,
         "ext_records": ext_records, "atlas_labels": labels, "roi_names": roi_names,
         "ext_out1": os.path.join(work, "out1")})
+
+    # ---- 20. spatial sharding and the 2-D mesh --------------------------------
+    sp = spatial_phase(torch, dev, card, work, {"tr_val": tr_val, "ckpt_dir": ckpt_dir,
+                                                "vols": vols})
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 20. result ----------------------------------------------------
+    # ---- 21. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -3916,6 +4225,7 @@ def main() -> int:
         "kernels_per_call": k1_kernels,
         "mode_by_shape": k1_modes,
         "launches_data_parallel": dp["launches_data_parallel"]["K1"],
+        "launches_spatial": sp["launches_spatial"]["K1"],
         "design_pr": 3,
     }, {
         "name": "roi_pool",
@@ -3941,6 +4251,7 @@ def main() -> int:
         "ms_1mm_600_rois": k2_1mm_ms,
         "bound_ms_1mm_600_rois": k2_1mm_bound,
         "launches_data_parallel": dp["launches_data_parallel"]["K2"],
+        "launches_spatial": sp["launches_spatial"]["K2"],
         "design_pr": 3,
     }, {
         "name": "int8_conv",
@@ -3964,6 +4275,7 @@ def main() -> int:
         "forward_19_convs": q8["k3_forward"],
         "per_shape": q8["k3_shapes"],
         "launches_data_parallel": dp["launches_data_parallel"]["K3"],
+        "launches_spatial": sp["launches_spatial"]["K3"],
         "design_pr": 7,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
@@ -3990,6 +4302,7 @@ def main() -> int:
                     "metatrain": meta, "fusion": fuse, "meta_estimators": meta_est,
                     "data_parallel": {k: v for k, v in dp.items()
                                       if k != "launches_data_parallel"},
+                    "spatial": {k: v for k, v in sp.items() if k != "launches_spatial"},
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -2,10 +2,10 @@
 
 The same JSON key schema and defaults, so a ``meta.json`` written by either
 package restores here. ``compute_dtype`` / ``param_dtype`` stay strings;
-`torch_dtype` maps them to torch dtypes. ``mesh_shape`` is the
-data-parallel mesh a process group runs (parallel/mesh.py::make_mesh, the
-trainers' default under ``python -m torch.distributed.run``; -1 takes
-every rank); ``prefetch_depth`` the streamed uploads kept in flight.
+`torch_dtype` maps them to torch dtypes. ``mesh_shape`` is the mesh a
+process group runs (parallel/mesh.py::make_mesh, the trainers' default
+under ``python -m torch.distributed.run``; -1 takes every rank; a 'space'
+axis replicates the batch over its ranks); ``prefetch_depth`` the streamed uploads kept in flight.
 """
 
 from __future__ import annotations

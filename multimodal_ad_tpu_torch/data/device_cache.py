@@ -29,7 +29,7 @@ from ..core.device import resolve_device
 from ..ops.augment import augment_batch
 from ..ops.fused_gather import _as_indices, gather_normalize
 from ..ops.normalize import NORMALIZERS
-from ..parallel.mesh import local_rows
+from ..parallel.mesh import local_rows, spatial_sharding
 
 
 def quantize_uint8(volumes: np.ndarray) -> np.ndarray:
@@ -156,7 +156,11 @@ class DeviceEpochIterator:
     and 'mask' are its rows; 'subject' still names the global batch's real
     rows): K1 gathers only them, and the augmentation draws for the global
     batch and applies this rank's draws. `batch_size` must divide by the
-    mesh's size."""
+    mesh's data axes. On a mesh with a 'space' axis the ranks of a data row
+    hold the same rows; with `spatial` (a dimension of the image, 1 for X)
+    each then keeps its slab of them (`spatial_sharding`) after K1 has
+    gathered and normalized the rows whole (the min and max are the whole
+    volume's) and the augmentation has run."""
 
     device_resident = True
 
@@ -165,12 +169,16 @@ class DeviceEpochIterator:
                  normalizer: str = "scale_intensity", subjects=None,
                  augment: bool = False, flip_prob: float = 0.3,
                  rotate_prob: float = 0.3, zoom_prob: float = 0.3,
-                 scale_prob: float = 0.0, mesh=None):
+                 scale_prob: float = 0.0, mesh=None, spatial: int | None = None):
         if normalizer not in NORMALIZERS:
             raise ValueError(f"unknown normalizer {normalizer!r}")
         self.mesh = mesh if mesh is not None else dataset.mesh
         self.rows = (local_rows(batch_size, self.mesh) if self.mesh is not None
                      else slice(0, batch_size))
+        if spatial is not None and self.mesh is None:
+            raise ValueError("spatial= needs a mesh with a 'space' axis")
+        self.slabs = (spatial_sharding(self.mesh, spatial_dim=spatial)
+                      if spatial is not None else None)
         self.ds = dataset
         self.indices = np.asarray(indices, np.int64)
         _as_indices(self.indices, dataset.n)  # range-checked once, here
@@ -205,6 +213,8 @@ class DeviceEpochIterator:
             batch["image"] = augment_batch(batch["image"], self.generator,
                                            global_rows=len(chunk),
                                            row_offset=self.rows.start, **self.aug_kw)
+        if self.slabs is not None:
+            batch["image"] = self.slabs.slab(batch["image"])
         return batch
 
     def __iter__(self):

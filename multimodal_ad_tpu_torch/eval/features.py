@@ -30,7 +30,7 @@ normalizes (K1), forwards and pools (K2) its contiguous rows of every
 batch; the rows are assembled on the device in global order
 (`gather_rows`) and the mesh's first rank alone writes the CSVs, whose
 rows and order are the single process's. The batch size must divide by
-the mesh's size.
+the mesh's data axes (a 'space' axis replicates the rows over its ranks).
 """
 
 from __future__ import annotations

@@ -334,10 +334,16 @@ def image_encoder(depth=18, in_channels=1, shortcut_type="B",
 def generate_model(model_type="resnet", model_depth=18, resnet_shortcut="B",
                    nb_class=2, dropout_rate=0.5, in_channels=1,
                    compute_dtype=torch.bfloat16, param_dtype=torch.float32,
-                   generator: torch.Generator | None = None, **_ignored):
+                   generator: torch.Generator | None = None, s2d_stem: bool = True,
+                   **_ignored):
     """Config-driven factory. Parameters are created in `param_dtype`
     (float32); `compute_dtype` selects the autocast type of the forward;
-    `generator` draws the initial weights."""
+    `generator` draws the initial weights. `s2d_stem` is accepted as the
+    TPU package's factory takes it, and either value gives the same model:
+    the port has one stem, a plain Conv3d computing the convolution that
+    the TPU package's space-to-depth and naive stems both compute, and it
+    shards spatially to any degree (parallel/spatial.py)."""
+    del s2d_stem
     if model_type != "resnet":
         raise ValueError(f"unsupported model_type {model_type!r}")
     if model_depth not in DEPTH_BLOCKS:

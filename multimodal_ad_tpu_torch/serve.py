@@ -22,7 +22,8 @@ the TPU package's serve.py).
   normalizes them and the bf16 or int8 folds forward them; the rows'
   probabilities are assembled on every rank (`gather_rows`), so
   `predict_proba` returns the whole result everywhere. The batch size must
-  divide by the mesh's size. Calibration (`quantize_int8`) runs the whole
+  divide by the mesh's data axes (a 'space' axis replicates the rows over
+  its ranks). Calibration (`quantize_int8`) runs the whole
   calibration set on every rank, so the scales are the single process's.
 
 Usage:

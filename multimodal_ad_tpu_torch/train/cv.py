@@ -28,15 +28,16 @@ fetch per epoch, so queued steps run back to back. Runs on the card unless
 
 Under a mesh (parallel/mesh.py; by default `make_mesh(cfg.mesh_shape)`
 when a process group is initialized, as under ``python -m
-torch.distributed.run``) every rank runs its rows of each global batch of
-``cfg.batch_size``, which must divide by the mesh's size. BatchNorm
+torch.distributed.run``) every rank runs its data row's rows of each
+global batch of ``cfg.batch_size``, which must divide by the mesh's data
+axes (a 'space' axis replicates the rows over its ranks). BatchNorm
 statistics, losses and gradients are global (train/loop.py), the epoch
 metrics come from the global rows in global order (one all_reduce an
 epoch), and the mesh's first rank alone writes cv_results.csv, the
 checkpoints and the ROC figure while the others wait for it at the end of
 each fold. A run at world size W gives the numbers of one process at the
-same global batch, up to the order of sums and each rank's own dropout
-draws.
+same global batch, up to the order of sums and each data row's own
+dropout draws.
 """
 
 from __future__ import annotations

@@ -23,17 +23,25 @@ parameters by default) and keeps the loss and the probabilities on the
 device: nothing in a step waits for the card.
 
 Under a mesh (parallel/mesh.py; `create_train_state(mesh=)`) each rank
-holds its rows of the global batch. The model's BatchNorms take global
-statistics (`convert_sync_batchnorm`), the forward and backward run on a
-DistributedDataParallel wrapper (``broadcast_buffers=False``: the global
-statistics keep the ranks' running buffers equal), which averages the
-gradients over the ranks inside the backward; clipping and the update
-follow on the averaged gradients, the same on every rank. The losses
-divide by the global weight (or mask) sum: each rank's share is local
-Σ w·nll / global Σ w, scaled by the world size for DDP's average, so a
-ragged batch whose real rows sit on some ranks only weighs each row as one
-process would. The loss a step returns is the global one. Each rank draws
-its own dropout masks (the seed offset by the rank).
+holds its data row's rows of the global batch: all of each volume, or with
+``spatial=True`` on a mesh with a 'space' axis its slab of them, the
+ResNet then sharded over that axis (parallel/spatial.py). The model's
+BatchNorms take their statistics over every rank of the mesh
+(`convert_sync_batchnorm`), the forward and backward run on a
+DistributedDataParallel wrapper over the whole mesh (``broadcast_buffers=
+False``: the global statistics keep the ranks' running buffers equal),
+which averages the gradients over all D x S ranks inside the backward;
+clipping and the update follow on the averaged gradients, the same on
+every rank. The losses divide by the global weight (or mask) sum: each
+rank's share is its data row's Σ w·nll / global Σ w, scaled by D, the
+data axes' size, for DDP's average. Each rank thus takes 1 / S of its
+row's loss, S the space axis' size, and the S ranks of a row together
+take the row's whole gradient, whether they hold its volumes whole or in
+slabs (the sums over ranks in BatchNorm and the pool have sum-over-ranks
+backwards). A ragged batch whose real rows sit on some rows only weighs
+each row as one process would. The loss a step returns is the global
+one. Each data row draws its own dropout masks (the seed offset by the
+data coordinate), so the S ranks of a row draw the same ones.
 """
 
 from __future__ import annotations
@@ -47,8 +55,9 @@ from torch import nn
 
 from ..models.resnet3d import set_dropout_generator
 from ..parallel import mesh as pmesh
+from ..parallel.spatial import convert_spatial
 
-#: per-rank offset of the dropout seed under a mesh (rank 0 keeps the seed)
+#: per-data-row offset of the dropout seed under a mesh (row 0 keeps the seed)
 DROPOUT_RANK_STRIDE = 1_000_003
 
 
@@ -158,22 +167,30 @@ class TrainState:
 
 def create_train_state(model: nn.Module, schedule, weight_decay: float = 1e-4,
                        grad_clip_norm: float = 1.0, optimizer: str = "adam",
-                       dropout_seed: int | None = None, mesh=None) -> TrainState:
+                       dropout_seed: int | None = None, mesh=None,
+                       spatial: bool = False) -> TrainState:
     """TrainState over `model` (already on its device). With `dropout_seed`
     the model's dropout draws from a generator on that device seeded with
     it (train_cv seeds it with seed * 1000 + fold; under a mesh, plus
-    `DROPOUT_RANK_STRIDE` times the rank). With `mesh` the BatchNorms turn
-    global and the model is wrapped for DDP, whose construction broadcasts
-    the mesh's first rank's parameters and buffers to the others."""
+    `DROPOUT_RANK_STRIDE` times the data coordinate). With `mesh` the
+    BatchNorms turn global and the model is wrapped for DDP over the whole
+    mesh, whose construction broadcasts the mesh's first rank's parameters
+    and buffers to the others; with `spatial` too, the ResNet is sharded
+    over the mesh's 'space' axis (`convert_spatial`) and takes slabs."""
     device = next(model.parameters()).device
     ddp = None
     rank = 0
+    if spatial and mesh is None:
+        raise ValueError("spatial=True needs a mesh with a 'space' axis")
     if mesh is not None:
         rank = pmesh.data_rank(mesh)
-        pmesh.convert_sync_batchnorm(model, mesh)
+        if spatial:
+            convert_spatial(model, mesh)
+        else:
+            pmesh.convert_sync_batchnorm(model, mesh)
         ddp = nn.parallel.DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
-            process_group=pmesh.data_group(mesh), broadcast_buffers=False)
+            process_group=pmesh.mesh_group(mesh), broadcast_buffers=False)
     gen = None
     if dropout_seed is not None:
         seed = int(dropout_seed) + DROPOUT_RANK_STRIDE * rank
@@ -186,8 +203,8 @@ def create_train_state(model: nn.Module, schedule, weight_decay: float = 1e-4,
 def mean_share(num, den, mesh):
     """(this rank's share of num / den, the global value or None): without
     a mesh num / max(den, 1e-8) and None; under one num / global den and
-    global num / global den, both sums over the ranks in one all_reduce
-    (outside autograd)."""
+    global num / global den, both sums over the data rows (`data_group`) in
+    one all_reduce (outside autograd)."""
     if mesh is None:
         return num / den.clamp(min=1e-8), None
     tot = pmesh.all_reduce_sum(torch.stack([num.detach(), den.detach()]), mesh)
@@ -228,7 +245,8 @@ def masked_ce(logits, labels, mask, mesh=None):
 def backward_mean(state: TrainState, num, den):
     """Backward of the loss num / den (sums over this rank's rows); returns
     the global loss, detached. Under a mesh the rank's share of the loss is
-    scaled by the world size, which DDP's gradient average divides out."""
+    scaled by the data axes' size D; DDP's gradient average over the D x S
+    ranks of the mesh divides it out (see the module docstring)."""
     loss, total = mean_share(num, den, state.mesh)
     if total is None:
         loss.backward()

@@ -7,10 +7,10 @@ NVIDIA GPU.
 Phases (any failure ends the run with a non-zero exit, nothing is caught):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build K1 (csrc/fused_gather.cu), K2 (csrc/roi_pool.cu) and K3
-   (csrc/int8_conv.cu) with nvcc for sm_90a, in parallel, timed, and the
-   native NIfTI decoder (native/nifti_reader.cpp) with g++, timed; the run
-   fails if either does not build;
+2. build K1 (csrc/fused_gather.cu), K2 (csrc/roi_pool.cu), K3
+   (csrc/int8_conv.cu) and K4 (csrc/max_pool.cu) with nvcc for sm_90a, in
+   parallel, timed, and the native NIfTI decoder (native/nifti_reader.cpp)
+   with g++, timed; the run fails if either does not build;
 3. K1 against its plain PyTorch version on the card: 32 full-size
    91x109x91 volumes in uint8, int16 (with negatives) and float32,
    repeated indices and one constant volume, f32 and bf16 output, int32
@@ -244,7 +244,27 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    and buffers equal, then the bf16 step's time (median of 3 after 1) with
    its exchanges and halo MB a step; (c) the same on a ragged batch (5 real
    rows); (d) `entry.dryrun_multichip(4)` over four gloo ranks on the card;
-21. one JSON line {"kernels": [...]} (with each kernel's launches in phase
+21. K4 (csrc/max_pool.cu), the backward of `ops/pool.py::max_pool_3d_fast`
+   (each window's cotangent split equally among its tied maxima), which no
+   model routes: driven through `max_pool_3d_fast(x).backward(g)` at the
+   ResNet-18 stem pool (8, 46, 55, 46, 64), 3^3/s2/p1, in the dtype the
+   ResNet train step hands its max pool and in float32, and at the U-Net's
+   first encoder pool (2, 96, 112, 96, 64) bf16, 2^3/s2/p0 (the launches);
+   (a) at the stem shape, a normal (in float32 59.6 M distinct values,
+   tie-free) and ReLU(normal - 2) (about half the windows all zero, so
+   tied): the forward bit-equal to `F.max_pool3d`, K4 against its plain
+   version (float32 within 1e-6 * max|g|; bf16 equal to the plain version
+   computed in float32 and rounded once, and within 1e-2 * max|dx| of the
+   bf16 plain version), on the tie-free float32 input against ATen's
+   max-pool backward (1e-6 * max|g|), each window's mass kept, two
+   launches bit-identical; (b) at the U-Net shape, an all-zero input gives
+   exactly g / 8 repeated, and an input without ties in any window (each
+   window a permutation of 0..7) gives K4 = plain = ATen bit for bit; (c)
+   times (medians of 25, L2 flushed) of K4's backward, the plain
+   version's, ATen's backward from saved indices, and forward + backward
+   through autograd for K4 and for ATen, beside the byte bound, and the
+   split of K4's time between its two passes (torch.profiler);
+22. one JSON line {"kernels": [...]} (with each kernel's launches in phase
    19 by rank and run, `launches_data_parallel`, and in phase 20,
    `launches_spatial`) and, last, the device line.
 
@@ -289,6 +309,13 @@ K2_SOURCE = "multimodal_ad_tpu_torch/csrc/roi_pool.cu"
 K3_REPLACES = "multimodal_ad_tpu/models/resnet3d_int8.py:131"
 K3_SOURCE = "multimodal_ad_tpu_torch/csrc/int8_conv.cu"
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, int8 dense tensor-core rate
+K4_REPLACES = "multimodal_ad_tpu/ops/pool.py:63"
+K4_SOURCE = "multimodal_ad_tpu_torch/csrc/max_pool.cu"
+# K4's two shapes: the ResNet-18 stem's output at B = 8 (91 -> 46 -> 23),
+# its 3^3/s2/p1 pool; the U-Net's first encoder pool, configs/config_unet.json's
+# batch 2 with the volume padded to a multiple of 8 and 64 channels, 2^3/s2/p0
+POOL_STEM = (BATCH, 46, 55, 46, 64)
+POOL_UNET = (2, 96, 112, 96, 64)
 # K3 at the flagship's block convs, B = 8 (name, input grid, C_in, C_out,
 # kernel, stride, dilation, and the epilogues the path runs on the shape
 # with their launches a forward: "int8" a block's first conv, "float32" its
@@ -3413,6 +3440,239 @@ def spatial_phase(torch, dev, card, work, ctx):
     return out
 
 
+def k4_bound_ms(x, y, window):
+    """Least time for K4's work: x, y and g read once and dx written once;
+    or its compares and adds (each window's w^3 compares in pass A, a
+    compare and an add per (input, window) pair in pass B) at the float32
+    rate, whichever is larger."""
+    moved = 2 * x.numel() * x.element_size() + 2 * y.numel() * y.element_size()
+    ops = 3 * window ** 3 * y.numel()
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _window_ranks(torch, g, shape, dev):
+    """A (B, D, H, W, C) input whose every 2^3/s2 window holds 0..7 once,
+    in a random order: no window ties, exact in bfloat16."""
+    b, d, h, w, c = shape
+    keys = torch.rand((b, d // 2, h // 2, w // 2, c, 8), generator=g, device=dev)
+    ranks = keys.argsort(-1).argsort(-1).to(torch.float32)
+    ranks = ranks.view(b, d // 2, h // 2, w // 2, c, 2, 2, 2)
+    return ranks.permute(0, 1, 5, 2, 6, 3, 7, 4).reshape(shape)
+
+
+def _k4_pass_split(torch, fn, tries=3):
+    """{"A": ms, "B": ms}: device time a call of K4's two passes over 5
+    calls of `fn()` under torch.profiler (warm L2), or None when no profile
+    of `tries` shows both (the profiler can lose events; the split is
+    information, K4's time comes from CUDA events)."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        passes = {}
+        for e in prof.key_averages():
+            us = device_us(e)
+            if us > 0 and ("split_windows" in e.key or "gather_windows" in e.key):
+                passes["A" if "split_windows" in e.key else "B"] = us / e.count / 1e3
+        if set(passes) == {"A", "B"}:
+            return passes
+    return None
+
+
+def max_pool_phase(torch, dev, card):
+    """Phase 21: K4, the tie-splitting max-pool backward (see the module
+    docstring)."""
+    import torch.nn.functional as F
+
+    from multimodal_ad_tpu_torch.core.config import Config
+    from multimodal_ad_tpu_torch.ops import pool as tk4
+    from multimodal_ad_tpu_torch.train.cv import _make_model
+
+    t_phase = time.time()
+    log("== 21. K4: max_pool_3d_fast's tie-splitting backward at the ResNet-18 stem pool "
+        f"{POOL_STEM} 3^3/s2/p1 and the U-Net encoder pool {POOL_UNET} 2^3/s2/p0")
+    log(card)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    # the dtype the ResNet train step hands its max pool, under the config's autocast
+    model = _make_model(Config(), None, SEED).to(dev).train()
+    seen = []
+    hook = model.maxpool.register_forward_pre_hook(lambda m, a: seen.append(a[0].dtype))
+    model(torch.zeros((2, 32, 38, 32, 1), device=dev))
+    hook.remove()
+    train_dtype = seen[0]
+    del model
+    log(f"the ResNet-18 train step's max pool takes {train_dtype}")
+    dtypes = [train_dtype] + [d for d in (torch.float32,) if d != train_dtype]
+
+    def aten_pool(x, window, padding):
+        """(y, indices) of ATen's max pool on the channels-last view."""
+        return F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, 2, padding,
+                            return_indices=True)
+
+    def aten_backward(x, gy, idx, window, padding):
+        dxp = torch.ops.aten.max_pool3d_with_indices_backward(
+            gy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), [window] * 3, [2] * 3,
+            [padding] * 3, [1] * 3, False, idx)
+        return dxp.permute(0, 2, 3, 4, 1)
+
+    # the path: max_pool_3d_fast through autograd, counted
+    drive = [(POOL_STEM, 3, 1, d) for d in dtypes] + [(POOL_UNET, 2, 0, torch.bfloat16)]
+    tk4.max_pool_3d_fast_backward.launches = 0
+    for shape, window, padding, dtype in drive:
+        x = torch.randn(shape, generator=g, device=dev).clamp_(min=0).to(dtype)
+        x.requires_grad_(True)
+        y = tk4.max_pool_3d_fast(x, window, 2, padding)
+        y.backward(torch.randn(tuple(y.shape), generator=g, device=dev).to(dtype))
+        check(x.grad is not None and bool(torch.isfinite(x.grad).all()),
+              f"K4's gradient at {shape} {dtype} is not finite")
+    torch.cuda.synchronize()
+    launches = tk4.max_pool_3d_fast_backward.launches
+    check(launches == len(drive), f"K4 launched {launches} times for {len(drive)} backwards")
+    del x, y
+
+    errs, out = {}, {"train_pool_dtype": str(train_dtype), "launches": launches}
+
+    def compare(name, x, window, padding, dtype, tie_free):
+        """K4 on x against its plain version (and ATen's backward where no
+        window ties, in float32); the forward against ATen's.
+
+        float32: within 1e-6 * max|g| of the plain version. bf16: the plain
+        version rounds `inv` and each of up to 8 partial sums to bf16, K4
+        sums in float32 and rounds once, so K4 must equal the plain
+        version run in float32 on the same values and rounded once, and lie
+        within 1e-2 * max|dx| of the bf16 plain version (an input that is
+        the maximum of several windows sums their cotangents: max|dx| is a
+        few times max|g|)."""
+        y = tk4.max_pool_3d_fast(x, window, 2, padding)
+        y_ref, idx = aten_pool(x, window, padding)
+        check(torch.equal(y, y_ref.permute(0, 2, 3, 4, 1)), f"{name}: forward != F.max_pool3d")
+        gy = torch.randn(tuple(y.shape), generator=g, device=dev).to(dtype)
+        a = tk4.max_pool_3d_fast_backward(x, y, gy, window, padding)
+        b = tk4.max_pool_3d_fast_backward(x, y, gy, window, padding)
+        ref = tk4.max_pool_3d_fast_plain(x, y, gy, window, padding)
+        ref32 = tk4.max_pool_3d_fast_plain(x.float(), y.float(), gy.float(), window, padding)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{name}: two K4 launches differ")
+        gmax = float(gy.float().abs().max())
+        dxmax = float(ref32.abs().max())
+        err = float((a.float() - ref.float()).abs().max())
+        row = {"k4_vs_plain": err, "max_abs_g": gmax, "max_abs_dx": dxmax,
+               "bit_equal_to_plain_in_float32": torch.equal(a, ref32.to(dtype))}
+        if dtype == torch.float32:
+            check(err <= 1e-6 * gmax, f"{name}: K4 vs plain {err:.3e} > 1e-6 * {gmax:.3f}")
+        else:
+            check(row["bit_equal_to_plain_in_float32"],
+                  f"{name}: K4 != the float32 plain version rounded once")
+            check(err <= 1e-2 * dxmax, f"{name}: K4 vs plain {err:.3e} > 1e-2 * {dxmax:.3f}")
+        del ref32
+        aten = aten_backward(x, gy, idx, window, padding)
+        row["k4_vs_aten"] = float((a.float() - aten.float()).abs().max())
+        if tie_free and dtype == torch.float32:
+            check(row["k4_vs_aten"] <= 1e-6 * gmax,
+                  f"{name}: K4 vs ATen {row['k4_vs_aten']:.3e} on a tie-free input")
+        mass = abs(float(a.double().sum()) - float(gy.double().sum()))
+        row["mass_err_rel"] = mass / float(gy.double().abs().sum())
+        rel = 1e-6 if dtype == torch.float32 else 1e-2
+        check(row["mass_err_rel"] <= rel, f"{name}: mass {row['mass_err_rel']:.3e} lost")
+        errs[name] = row
+        log(f"{name}: K4 vs plain {err:.3e} (max|g| {gmax:.3f}, max|dx| {dxmax:.3f}; "
+            f"bit-equal to the float32 plain: {row['bit_equal_to_plain_in_float32']}), vs ATen "
+            f"{row['k4_vs_aten']:.3e}, mass {row['mass_err_rel']:.2e} of sum|g|, "
+            "two launches bit-identical")
+        return a, ref, aten, gy
+
+    # (a) the stem pool, tie-free and tied. 59.6 M draws of randn repeat
+    # values, and in bf16 most windows' top values share a bucket: the
+    # tie-free float32 input is 59.6 M distinct floats (consecutive bit
+    # patterns from 1.0, shuffled). A 3^3 window of ReLU(n) ties at its
+    # maximum only where all 27 are zero (2^-27); ReLU(n - 2) leaves about
+    # half the windows all zero.
+    for dtype in dtypes:
+        base = torch.randn(POOL_STEM, generator=g, device=dev)
+        if dtype == torch.float32:
+            n = base.numel()
+            first = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
+            tie_free = ("distinct", (first + 0x3F800000).view(torch.float32).view(POOL_STEM))
+            del first
+        else:
+            tie_free = ("normal", base)
+        for kind, x in (tie_free, ("relu(n-2)", (base - 2).clamp(min=0))):
+            name = f"stem {kind} {str(dtype)[6:]}"
+            compare(name, x.to(dtype), 3, 1, dtype, kind == "distinct")
+            if kind == "relu(n-2)":
+                y = tk4.max_pool_3d_fast(x.to(dtype), 3, 2, 1)
+                errs[name]["tied_window_share"] = float((y == 0).float().mean())
+                log(f"{name}: {errs[name]['tied_window_share']:.3f} of the windows all zero")
+                del y
+        del base, x
+    # (b) the U-Net pool: all zero (every window tied), then no window tied
+    zeros = torch.zeros(POOL_UNET, dtype=torch.bfloat16, device=dev)
+    a, ref, _, gy = compare("unet zeros bf16", zeros, 2, 0, torch.bfloat16, False)
+    rep = gy.repeat_interleave(2, 1).repeat_interleave(2, 2).repeat_interleave(2, 3) / 8
+    check(torch.equal(a, rep) and torch.equal(ref, rep), "unet zeros: not exactly g / 8")
+    ranks = _window_ranks(torch, g, POOL_UNET, dev).to(torch.bfloat16)
+    a, ref, aten, _ = compare("unet tie-free bf16", ranks, 2, 0, torch.bfloat16, True)
+    check(torch.equal(a, ref) and torch.equal(a, aten),
+          "unet tie-free: K4, plain and ATen not bit-equal")
+    del zeros, a, ref, aten, gy, rep
+    log("unet: all-zero input exactly g / 8; tie-free input K4 = plain = ATen bit for bit")
+
+    # (c) times
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    timing = {}
+    for label, shape, window, padding, dtype in (
+            [(f"stem {str(d)[6:]}", POOL_STEM, 3, 1, d) for d in dtypes]
+            + [("unet bfloat16", POOL_UNET, 2, 0, torch.bfloat16)]):
+        x = torch.randn(shape, generator=g, device=dev).clamp_(min=0).to(dtype)
+        y = tk4.max_pool_3d_fast(x, window, 2, padding)
+        gy = torch.randn(tuple(y.shape), generator=g, device=dev).to(dtype)
+        _, idx = aten_pool(x, window, padding)
+        xr = x.detach().requires_grad_(True)
+
+        def k4_fwd_bwd():
+            tk4.max_pool_3d_fast(xr, window, 2, padding).backward(gy)
+
+        def aten_fwd_bwd():
+            F.max_pool3d(xr.permute(0, 4, 1, 2, 3), window, 2, padding).backward(
+                gy.permute(0, 4, 1, 2, 3))
+
+        bound, bound_by = k4_bound_ms(x, y, window)
+        passes = _k4_pass_split(torch, lambda: tk4.max_pool_3d_fast_backward(
+            x, y, gy, window, padding))
+        row = {
+            "pass_a_ms": passes and passes["A"], "pass_b_ms": passes and passes["B"],
+            "ms": time_cuda(torch, lambda: tk4.max_pool_3d_fast_backward(
+                x, y, gy, window, padding), flush=flush),
+            "plain_ms": time_cuda(torch, lambda: tk4.max_pool_3d_fast_plain(
+                x, y, gy, window, padding), flush=flush),
+            "aten_backward_ms": time_cuda(torch, lambda: aten_backward(
+                x, gy, idx, window, padding), flush=flush),
+            "fwd_bwd_ms": time_cuda(torch, k4_fwd_bwd, flush=flush),
+            "aten_fwd_bwd_ms": time_cuda(torch, aten_fwd_bwd, flush=flush),
+            "bound_ms": bound, "bound_by": bound_by,
+            "moved_mb": (2 * x.numel() * x.element_size()
+                         + 2 * y.numel() * y.element_size()) / 1e6,
+        }
+        timing[label] = row
+        log(f"{label} {tuple(shape)}: K4 {row['ms']:.4f} ms (bound {bound:.4f}, {bound_by}, "
+            f"{row['moved_mb']:.1f} MB), plain {row['plain_ms']:.4f}, ATen backward "
+            f"{row['aten_backward_ms']:.4f}; forward + backward K4 {row['fwd_bwd_ms']:.4f}, "
+            f"ATen {row['aten_fwd_bwd_ms']:.4f}; K4's passes (profiler, warm L2) "
+            + (f"A {passes['A']:.4f}, B {passes['B']:.4f}" if passes
+               else "not measured: the profiler lost their events"))
+        del x, y, gy, idx, xr
+    del flush
+    out.update(errs=errs, timing=timing, train_dtype_label=f"stem {str(train_dtype)[6:]}",
+               max_abs_err=max(r["k4_vs_plain"] for r in errs.values()),
+               phase_s=time.time() - t_phase)
+    log(f"phase 21 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _timed_ms(fn):
     t0 = time.perf_counter()
     fn()
@@ -3451,6 +3711,7 @@ def main() -> int:
     from multimodal_ad_tpu_torch.ops import _build
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
     from multimodal_ad_tpu_torch.ops import int8_conv as k3
+    from multimodal_ad_tpu_torch.ops import pool as k4
     from multimodal_ad_tpu_torch.ops import roi_pool as rp
     from multimodal_ad_tpu_torch.ops.augment import augment_batch
     from multimodal_ad_tpu_torch.ops.normalize import scale_intensity
@@ -3476,15 +3737,16 @@ def main() -> int:
     # ---- 2. build K1 ---------------------------------------------------
     log("== 2. build")
     t0 = time.time()
-    _build.build(["fused_gather", "roi_pool", "int8_conv"])  # one nvcc each, in parallel
+    kernel_sources = ("fused_gather", "roi_pool", "int8_conv", "max_pool")
+    _build.build(kernel_sources)  # one nvcc each, in parallel
     fg._lib()
     rp._lib()
     k3._lib()
+    k4._lib()
     build_s = time.time() - t0
-    log(f"K1, K2 and K3 built and loaded in {build_s:.2f} s "
-        f"({_build.library_path('fused_gather').name}, "
-        f"{_build.library_path('roi_pool').name}, {_build.library_path('int8_conv').name})")
-    for name in ("fused_gather", "roi_pool", "int8_conv"):
+    log(f"K1, K2, K3 and K4 built and loaded in {build_s:.2f} s "
+        f"({', '.join(_build.library_path(n).name for n in kernel_sources)})")
+    for name in kernel_sources:
         log(_build.build_log(name).strip())
     t0 = time.time()
     native_err = native_loader.build_error()  # g++, the host NIfTI decoder
@@ -4186,7 +4448,10 @@ def main() -> int:
                                                 "vols": vols})
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 21. result ----------------------------------------------------
+    # ---- 21. K4, the tie-splitting max-pool backward ---------------------------
+    pool = max_pool_phase(torch, dev, card)
+
+    # ---- 22. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -4277,6 +4542,26 @@ def main() -> int:
         "launches_data_parallel": dp["launches_data_parallel"]["K3"],
         "launches_spatial": sp["launches_spatial"]["K3"],
         "design_pr": 7,
+    }, {
+        "name": "max_pool_3d_fast_backward",
+        "route": "cuda",
+        "source": K4_SOURCE,
+        "replaces": K4_REPLACES,
+        "not_pallas": "an XLA custom_vjp backward (dense slice/compare/pad form)",
+        "launches": pool["launches"],
+        "launches_note": "phase 21's max_pool_3d_fast backwards; no model routes it",
+        "max_abs_err": pool["max_abs_err"],
+        "ms": pool["timing"][pool["train_dtype_label"]]["ms"],
+        "plain_ms": pool["timing"][pool["train_dtype_label"]]["plain_ms"],
+        "bound_ms": pool["timing"][pool["train_dtype_label"]]["bound_ms"],
+        "bound_by": pool["timing"][pool["train_dtype_label"]]["bound_by"],
+        "library_ms": pool["timing"][pool["train_dtype_label"]]["aten_backward_ms"],
+        "library_call": "aten max_pool3d_with_indices_backward from saved indices "
+                        "(one maximum a window; equal where no window ties)",
+        "shape": f"{pool['train_dtype_label']} {POOL_STEM}, 3^3/s2/p1",
+        "per_shape": pool["timing"],
+        "checks": pool["errs"],
+        "design_pr": 14,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},
@@ -4303,6 +4588,7 @@ def main() -> int:
                     "data_parallel": {k: v for k, v in dp.items()
                                       if k != "launches_data_parallel"},
                     "spatial": {k: v for k, v in sp.items() if k != "launches_spatial"},
+                    "max_pool": {k: v for k, v in pool.items() if k not in ("timing", "errs")},
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -14,6 +14,8 @@ import numpy as np
 
 from ..utils import nifti
 
+GROUPS = ["AD", "CN", "SMCI", "PMCI", "EMCI", "LMCI"]  # the ADNI diagnostic groups
+
 
 def make_volume(rng: np.random.Generator, shape=(91, 109, 91), label: int = 0,
                 extent_jitter: float = 0.0, center_jitter: float = 0.0,

@@ -25,6 +25,14 @@ host transform's up to K1's rounding (at most 2 ulp of a normalized
 value, ops/fused_gather.py), and is bit-equal on a card and on the CPU.
 Corner indices are clipped to [0, d - 2], weights to [0, 1], and a sample
 is zero where a coordinate falls outside [0, d - 1].
+
+The TPU package's host call form stays too: `rand_flip`, `rand_rotate` and
+`rand_zoom` take a numpy volume and a generator, draw as its functions do
+(so a chain of them on one generator draws what `plan_augmentation`
+draws) and resample on a CPU tensor with `rotate_x` / `zoom_trilinear`;
+`VolumeTransform(augment, normalizer, seed)(vol, sample_idx, epoch)`
+normalizes (ops/normalize.py's NORMALIZERS, on the CPU) and augments one
+volume into an (X, Y, Z, 1) float32 array.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.augment import _apply_to
+from ..ops.normalize import NORMALIZERS
 
 FLIP_PROB = 0.3
 ROTATE_PROB = 0.3
@@ -69,10 +78,15 @@ class VolumeTransform:
     """Per-volume augmentation plans. `plan(sample_idx, epoch)` draws from
     ``np.random.default_rng((seed, epoch, sample_idx))``: independent of
     the loader threads' order and fresh every epoch. Without `augment`
-    every plan is the identity."""
+    every plan is the identity. Called on a host volume, it normalizes and
+    augments it there (the TPU package's call form)."""
 
-    def __init__(self, augment: bool = False, seed: int = 0):
+    def __init__(self, augment: bool = False, normalizer: str = "scale_intensity",
+                 seed: int = 0):
+        if normalizer not in NORMALIZERS:
+            raise KeyError(f"unknown normalizer {normalizer!r}; choose from {list(NORMALIZERS)}")
         self.augment = augment
+        self.normalizer = normalizer
         self.seed = seed
 
     def plan(self, sample_idx: int = 0, epoch: int = 0) -> AugmentPlan:
@@ -80,11 +94,57 @@ class VolumeTransform:
             return AugmentPlan()
         return plan_augmentation(np.random.default_rng((self.seed, epoch, sample_idx)))
 
+    def __call__(self, vol: np.ndarray, sample_idx: int = 0, epoch: int = 0) -> np.ndarray:
+        """(X, Y, Z) volume -> normalized, augmented (X, Y, Z, 1) float32,
+        the draws from the stream `plan` uses."""
+        batch = torch.from_numpy(np.ascontiguousarray(vol))[None, ..., None]
+        vol = NORMALIZERS[self.normalizer](batch)[0, ..., 0].numpy()
+        if self.augment:
+            rng = np.random.default_rng((self.seed, epoch, sample_idx))
+            vol = rand_flip(vol, rng)
+            vol = rand_rotate(vol, rng)
+            vol = rand_zoom(vol, rng)
+        return vol[..., None]
 
-def make_transforms(augment: bool = False, seed: int = 0):
-    """(train, eval) transforms; the evaluation one never augments. The
-    normalizer runs on the device, before the plans (`apply_plans`)."""
-    return VolumeTransform(augment=augment, seed=seed), VolumeTransform(augment=False)
+
+def make_transforms(augment: bool = False, seed: int = 0,
+                    normalizer: str = "scale_intensity"):
+    """(train, eval) transforms; the evaluation one never augments. On the
+    training path the normalizer runs on the device, before the plans
+    (`apply_plans`); `normalizer` is the host call form's."""
+    return (VolumeTransform(augment=augment, normalizer=normalizer, seed=seed),
+            VolumeTransform(augment=False, normalizer=normalizer))
+
+
+def rand_flip(vol: np.ndarray, rng: np.random.Generator, prob: float = FLIP_PROB,
+              axis: int = 0) -> np.ndarray:
+    """Flip `axis` with probability `prob` (one draw)."""
+    if rng.random() < prob:
+        vol = np.flip(vol, axis=axis).copy()
+    return vol
+
+
+def rand_rotate(vol: np.ndarray, rng: np.random.Generator, prob: float = ROTATE_PROB,
+                range_x: float = RANGE_X) -> np.ndarray:
+    """Rotate about axis 0 by an angle uniform in [-range_x, range_x] with
+    probability `prob` (`rotate_x`)."""
+    if rng.random() < prob:
+        angle = rng.uniform(-range_x, range_x)
+        vol = rotate_x(torch.from_numpy(np.ascontiguousarray(vol))[None], [angle])[0].numpy()
+    return vol
+
+
+def rand_zoom(vol: np.ndarray, rng: np.random.Generator, prob: float = ZOOM_PROB,
+              min_zoom: float = MIN_ZOOM, max_zoom: float = MAX_ZOOM) -> np.ndarray:
+    """Zoom about the centre by a factor uniform in [min_zoom, max_zoom]
+    with probability `prob`, resampled onto the same grid
+    (`zoom_trilinear`); a factor within 1e-6 of 1 leaves the volume."""
+    if rng.random() >= prob:
+        return vol
+    zoom = rng.uniform(min_zoom, max_zoom)
+    if abs(zoom - 1.0) < 1e-6:
+        return vol
+    return zoom_trilinear(torch.from_numpy(np.ascontiguousarray(vol))[None], [zoom])[0].numpy()
 
 
 def _corner(c: np.ndarray, d: int):

@@ -62,6 +62,32 @@ STAGES = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))  # planes, stride, 
 HEADS = ("classifier", "seg", "pool", "none")
 
 
+def _channels_first(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _channels_last(x):
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def max_pool_3d(x, window=3, stride=2, padding=1):
+    """Max pool of a channels-last (B, X, Y, Z, C) tensor (-inf padding).
+    Its backward is ATen's: each window's cotangent goes to one maximum,
+    where ops/pool.py::max_pool_3d_fast splits it among tied maxima."""
+    return _channels_last(F.max_pool3d(_channels_first(x), window, stride, padding))
+
+
+def avg_pool_3d(x, window, stride, padding=0):
+    """Average pool of a channels-last (B, X, Y, Z, C) tensor; the zero
+    padding counts in each mean, as flax's `avg_pool` counts it."""
+    return _channels_last(F.avg_pool3d(_channels_first(x), window, stride, padding))
+
+
+def global_avg_pool(x):
+    """(B, X, Y, Z, C) -> (B, C), the mean over the spatial axes."""
+    return x.mean(dim=(1, 2, 3))
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
           dilation: int = 1) -> nn.Conv3d:
     return nn.Conv3d(cin, cout, kernel, stride,

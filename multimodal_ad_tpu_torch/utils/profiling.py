@@ -5,7 +5,8 @@ utils/profiling.py).
   ends in a device synchronize, so a timer is only passed when profiling
   (`Config.profile_dir`): otherwise steps queue back to back;
 - `trace(log_dir)`: `torch.profiler` over the block (host and CUDA
-  activity), written as a Chrome trace into `log_dir`; no-op without one.
+  activity), written as a Chrome trace into `log_dir`; no-op without one;
+- `annotate(name)`: a labelled host span in such a trace.
 """
 
 from __future__ import annotations
@@ -67,3 +68,9 @@ def trace(log_dir: str | None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """Context manager that labels the block `name` in a `torch.profiler`
+    trace (the TPU package's profiler trace annotation)."""
+    return torch.profiler.record_function(name)

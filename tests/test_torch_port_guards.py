@@ -1,6 +1,6 @@
 """Guards of the port: it imports without JAX or the JAX package, names
 neither, never falls back to the CPU when CUDA is asked for, and its CUDA
-kernels K1, K2 and K3 agree with their plain versions on a card (those
+kernels K1, K2, K3 and K4 agree with their plain versions on a card (those
 tests carry the `cuda` marker and skip where there is none; K3 in all its
 epilogues, the block output's included, on grids where whole tiles skip
 taps and at odd channel counts), as do three fp32 train steps of the
@@ -28,6 +28,7 @@ import multimodal_ad_tpu_torch
 from multimodal_ad_tpu_torch.data.synthetic import make_atlas
 from multimodal_ad_tpu_torch.ops import fused_gather as tfg
 from multimodal_ad_tpu_torch.ops import int8_conv as tk3
+from multimodal_ad_tpu_torch.ops import pool as tk4
 from multimodal_ad_tpu_torch.ops import roi_pool as trp
 from test_torch_port_support import cap_torch_threads
 
@@ -45,7 +46,8 @@ def _port_modules():
 def test_imports_with_jax_blocked():
     # the multi-device layer, the entry points and the examples among them
     for name in ("multimodal_ad_tpu_torch.parallel.mesh", "multimodal_ad_tpu_torch.entry",
-                 "multimodal_ad_tpu_torch.examples.serve_int8"):
+                 "multimodal_ad_tpu_torch.examples.serve_int8",
+                 "multimodal_ad_tpu_torch.ops.pool"):
         assert name in _port_modules()
     code = (
         "import sys\n"
@@ -534,6 +536,76 @@ def test_k2_padded_crops(cuda, case):
     before = trp.roi_pool.path_launches[expect]
     _check_k2(feats, atlas, 9)
     assert trp.roi_pool.path_launches[expect] == before + 2
+
+
+K4_CASES = [  # (window, padding, shape)
+    (3, 1, (2, 9, 9, 9, 4)), (3, 1, (2, 8, 7, 9, 5)), (2, 0, (1, 10, 10, 10, 2)),
+    (2, 0, (2, 12, 14, 12, 64)), (3, 1, (2, 23, 28, 23, 64)), (4, 1, (1, 11, 9, 10, 3)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("window,padding,shape", K4_CASES)
+def test_k4_matches_plain(cuda, dtype, window, padding, shape):
+    """K4 against its plain version on tie-free and ReLU'd (tied) inputs:
+    float32 within 1e-6 * max|g| (one order of sums); bf16 / fp16 equal to
+    the plain version computed in float32 and rounded once (K4's
+    arithmetic), and within 1e-2 * max|dx| of the plain version in the
+    type, which rounds each partial sum; two launches bit-identical; each
+    window's mass kept."""
+    g = torch.Generator().manual_seed(sum(shape))
+    for relu in (False, True):
+        x = torch.randn(shape, generator=g)
+        x = (x.clamp(min=0) if relu else x).to(cuda, dtype)
+        y = tk4.max_pool_3d_fast(x, window, 2, padding)
+        gy = torch.randn(tuple(y.shape), generator=g).to(cuda, dtype)
+        before = tk4.max_pool_3d_fast_backward.launches
+        a = tk4.max_pool_3d_fast_backward(x, y, gy, window, padding)
+        b = tk4.max_pool_3d_fast_backward(x, y, gy, window, padding)
+        torch.cuda.synchronize()
+        assert tk4.max_pool_3d_fast_backward.launches == before + 2
+        assert a.dtype == dtype and a.shape == x.shape and torch.equal(a, b)
+        ref = tk4.max_pool_3d_fast_plain(x, y, gy, window, padding)
+        ref32 = tk4.max_pool_3d_fast_plain(x.float(), y.float(), gy.float(), window, padding)
+        rel = 1e-6 if dtype == torch.float32 else 1e-2
+        if dtype == torch.float32:
+            tol = rel * float(gy.abs().max())
+        else:
+            assert torch.equal(a, ref32.to(dtype))
+            tol = rel * float(ref32.abs().max())
+        torch.testing.assert_close(a.float(), ref.float(), rtol=0, atol=tol)
+        mass_err = abs(float(a.double().sum()) - float(gy.double().sum()))
+        assert mass_err <= rel * float(gy.double().abs().sum())
+
+
+@pytest.mark.cuda
+def test_k4_through_autograd_and_all_zero(cuda):
+    x = torch.zeros((2, 8, 8, 8, 4), device=cuda, requires_grad=True)
+    y = tk4.max_pool_3d_fast(x, 2, 2, 0)
+    gy = torch.randn(tuple(y.shape), generator=torch.Generator().manual_seed(5)).to(cuda)
+    before = tk4.max_pool_3d_fast_backward.launches
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert tk4.max_pool_3d_fast_backward.launches == before + 1
+    rep = gy.repeat_interleave(2, 1).repeat_interleave(2, 2).repeat_interleave(2, 3) / 8
+    assert torch.equal(x.grad, rep)
+
+
+@pytest.mark.cuda
+def test_k4_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 9, 9, 9, 2), device=cuda)
+    y = tk4.max_pool_3d_fast(x)  # (1, 5, 5, 5, 2); at 2^3/p0 it would be 4
+    with pytest.raises(TypeError):
+        tk4.max_pool_3d_fast_backward(x.double(), y.double(), y.double())
+    with pytest.raises(TypeError):
+        tk4.max_pool_3d_fast_backward(x, y, y.bfloat16())
+    with pytest.raises(ValueError):  # y of another window's extent
+        tk4.max_pool_3d_fast_backward(x, y, y, 2, 0)
+    with pytest.raises(ValueError):
+        tk4.max_pool_3d_fast_backward(x, y, y, 3, 3)
+    with pytest.raises(ValueError):
+        tk4.max_pool_3d_fast_backward(x, y.cpu(), y)
 
 
 def _check_k1_exact(src, idx, constant):

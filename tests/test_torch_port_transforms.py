@@ -13,7 +13,13 @@ and the VolumeBatcher that carries its plans.
   over the same records (12 subjects in batches of 5: a ragged last batch
   padded with real rows, which repeat their source's draws), two shuffled
   epochs, through train/cv.py's `_device_batches`: order, masks and labels
-  equal, images within 1e-6.
+  equal, images within 1e-6;
+- the host call form: `rand_flip` / `rand_rotate` / `rand_zoom` against the
+  JAX functions on one seeded generator (the same draws, the generator's
+  state equal afterwards, the volumes within 1e-6), their chain drawing
+  what `plan_augmentation` draws, and `VolumeTransform(augment, normalizer,
+  seed)(vol, sample_idx, epoch)` against the JAX transform for both
+  normalizers (within 1e-6).
 """
 
 import numpy as np
@@ -154,3 +160,55 @@ def test_padding_rows_repeat_their_sources_plans(adni_dir):
     # 12 in order: the last batch is rows 10, 11 and the padding rows 0, 1, 2
     assert last["plan"] == [tt.plan(i, 0) for i in (10, 11, 0, 1, 2)]
     assert "plan" not in next(iter(tpipe.VolumeBatcher(recs, batch_size=5, num_threads=2)))
+
+
+RAND_CASES = [("rand_flip", {}), ("rand_flip", {"prob": 1.0, "axis": 2}),
+              ("rand_rotate", {}), ("rand_rotate", {"prob": 1.0, "range_x": 0.3}),
+              ("rand_zoom", {}), ("rand_zoom", {"prob": 1.0, "min_zoom": 0.8, "max_zoom": 1.2})]
+
+
+@pytest.mark.parametrize("name,kw", RAND_CASES,
+                         ids=[f"{n}-{'default' if not kw else 'p1'}" for n, kw in RAND_CASES])
+def test_rand_function_matches_jax(name, kw):
+    """The host call form: the same draws (the generator's state equal
+    afterwards) and the same volume within 1e-6, taken and skipped."""
+    taken = 0
+    for seed in range(16):
+        vol = jtf.scale_intensity(_volume(seed))
+        rj, rt = np.random.default_rng(seed), np.random.default_rng(seed)
+        ref = getattr(jtf, name)(vol, rj, **kw)
+        out = getattr(ttf, name)(vol, rt, **kw)
+        assert rt.bit_generator.state == rj.bit_generator.state
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+        taken += out is not vol
+    assert 0 < taken and (taken < 16 or kw)
+
+
+def test_chained_rand_functions_draw_what_plan_draws():
+    for seed in range(40):
+        rng, plan_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+        ttf.rand_zoom(ttf.rand_rotate(ttf.rand_flip(_volume(seed), rng), rng), rng)
+        ttf.plan_augmentation(plan_rng)
+        assert rng.bit_generator.state == plan_rng.bit_generator.state
+
+
+@pytest.mark.parametrize("normalizer", ["scale_intensity", "adaptive_normal"])
+def test_volume_transform_call_matches_jax(normalizer):
+    """`VolumeTransform(augment, normalizer, seed)(vol, sample_idx, epoch)`
+    against the JAX transform over every kind of draw, and the evaluation
+    transform of `make_transforms`: within 1e-6."""
+    jt = jtf.VolumeTransform(augment=True, normalizer=normalizer, seed=7)
+    tt = ttf.VolumeTransform(augment=True, normalizer=normalizer, seed=7)
+    for _, epoch, idx in CASES:
+        vol = _volume(idx) - 90  # negatives, which adaptive_normal leaves out
+        out = tt(vol, sample_idx=idx, epoch=epoch)
+        assert out.shape == vol.shape + (1,) and out.dtype == np.float32
+        np.testing.assert_allclose(out, jt(vol, sample_idx=idx, epoch=epoch), rtol=0, atol=1e-6)
+    _, t_eval = ttf.make_transforms(augment=True, seed=7, normalizer=normalizer)
+    _, j_eval = jtf.make_transforms(augment=True, seed=7, normalizer=normalizer)
+    assert t_eval.normalizer == normalizer and not t_eval.augment
+    vol = _volume(3) - 90
+    np.testing.assert_allclose(t_eval(vol, 3, 1), j_eval(vol, 3, 1), rtol=0, atol=1e-6)
+    with pytest.raises(KeyError):
+        ttf.VolumeTransform(normalizer="zscore")

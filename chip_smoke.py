@@ -262,8 +262,10 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    window a permutation of 0..7) gives K4 = plain = ATen bit for bit; (c)
    times (medians of 25, L2 flushed) of K4's backward, the plain
    version's, ATen's backward from saved indices, and forward + backward
-   through autograd for K4 and for ATen, beside the byte bound, and the
-   split of K4's time between its two passes (torch.profiler);
+   through autograd for K4 and for ATen, beside the byte bound, K4's
+   achieved GB/s, its launch geometry (with the blocks an SM holds as the
+   card counts them), and its one kernel's device time (torch.profiler);
+   K4's ptxas lines (registers, spills) first;
 22. one JSON line {"kernels": [...]} (with each kernel's launches in phase
    19 by rank and run, `launches_data_parallel`, and in phase 20,
    `launches_spatial`) and, last, the device line.
@@ -3440,15 +3442,26 @@ def spatial_phase(torch, dev, card, work, ctx):
     return out
 
 
+def k4_moved_bytes(x, y):
+    """Bytes K4 must move: x, y and g read once and dx written once."""
+    return 2 * x.numel() * x.element_size() + 2 * y.numel() * y.element_size()
+
+
 def k4_bound_ms(x, y, window):
-    """Least time for K4's work: x, y and g read once and dx written once;
-    or its compares and adds (each window's w^3 compares in pass A, a
-    compare and an add per (input, window) pair in pass B) at the float32
-    rate, whichever is larger."""
-    moved = 2 * x.numel() * x.element_size() + 2 * y.numel() * y.element_size()
+    """Least time for K4's work: its bytes (k4_moved_bytes) at HBM's rate;
+    or its compares and adds (each window's w^3 compares, a compare and an
+    add per (input, window) pair) at the float32 rate, whichever is
+    larger."""
     ops = 3 * window ** 3 * y.numel()
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = k4_moved_bytes(x, y) / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_lines(log):
+    """The lines of an nvcc -Xptxas -v log (ops/_build.py::build_log) that
+    name a kernel and give its registers, stack and spills."""
+    keys = ("Compiling entry function", "registers", "spill stores")
+    return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
 
 
 def _window_ranks(torch, g, shape, dev):
@@ -3461,11 +3474,11 @@ def _window_ranks(torch, g, shape, dev):
     return ranks.permute(0, 1, 5, 2, 6, 3, 7, 4).reshape(shape)
 
 
-def _k4_pass_split(torch, fn, tries=3):
-    """{"A": ms, "B": ms}: device time a call of K4's two passes over 5
-    calls of `fn()` under torch.profiler (warm L2), or None when no profile
-    of `tries` shows both (the profiler can lose events; the split is
-    information, K4's time comes from CUDA events)."""
+def _k4_device_ms(torch, fn, tries=3):
+    """Device ms a call of K4's one kernel (max_pool_backward) over 5 calls
+    of `fn()` under torch.profiler (warm L2), or None when no profile of
+    `tries` shows it (the profiler can lose events; K4's time comes from
+    CUDA events, this is the kernel's own share)."""
     for _ in range(tries):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -3473,13 +3486,10 @@ def _k4_pass_split(torch, fn, tries=3):
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
-        passes = {}
         for e in prof.key_averages():
             us = device_us(e)
-            if us > 0 and ("split_windows" in e.key or "gather_windows" in e.key):
-                passes["A" if "split_windows" in e.key else "B"] = us / e.count / 1e3
-        if set(passes) == {"A", "B"}:
-            return passes
+            if us > 0 and "max_pool_backward" in e.key:
+                return us / e.count / 1e3
     return None
 
 
@@ -3492,10 +3502,18 @@ def max_pool_phase(torch, dev, card):
     from multimodal_ad_tpu_torch.ops import pool as tk4
     from multimodal_ad_tpu_torch.train.cv import _make_model
 
+    from multimodal_ad_tpu_torch.ops import _build
+
     t_phase = time.time()
     log("== 21. K4: max_pool_3d_fast's tie-splitting backward at the ResNet-18 stem pool "
         f"{POOL_STEM} 3^3/s2/p1 and the U-Net encoder pool {POOL_UNET} 2^3/s2/p0")
     log(card)
+    tk4._lib()
+    ptxas = ptxas_lines(_build.build_log("max_pool"))
+    for line in ptxas:
+        log(f"K4 ptxas: {line}")
+    if not ptxas:
+        log("K4 ptxas report: none (the library was built before this process)")
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     # the dtype the ResNet train step hands its max pool, under the config's autocast
     model = _make_model(Config(), None, SEED).to(dev).train()
@@ -3623,7 +3641,7 @@ def max_pool_phase(torch, dev, card):
 
     # (c) times
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
-    timing = {}
+    timing, geometry = {}, {}
     for label, shape, window, padding, dtype in (
             [(f"stem {str(d)[6:]}", POOL_STEM, 3, 1, d) for d in dtypes]
             + [("unet bfloat16", POOL_UNET, 2, 0, torch.bfloat16)]):
@@ -3641,10 +3659,10 @@ def max_pool_phase(torch, dev, card):
                 gy.permute(0, 4, 1, 2, 3))
 
         bound, bound_by = k4_bound_ms(x, y, window)
-        passes = _k4_pass_split(torch, lambda: tk4.max_pool_3d_fast_backward(
+        geo = tk4.card_geometry(x, window, padding)
+        kernel_ms = _k4_device_ms(torch, lambda: tk4.max_pool_3d_fast_backward(
             x, y, gy, window, padding))
         row = {
-            "pass_a_ms": passes and passes["A"], "pass_b_ms": passes and passes["B"],
             "ms": time_cuda(torch, lambda: tk4.max_pool_3d_fast_backward(
                 x, y, gy, window, padding), flush=flush),
             "plain_ms": time_cuda(torch, lambda: tk4.max_pool_3d_fast_plain(
@@ -3654,19 +3672,29 @@ def max_pool_phase(torch, dev, card):
             "fwd_bwd_ms": time_cuda(torch, k4_fwd_bwd, flush=flush),
             "aten_fwd_bwd_ms": time_cuda(torch, aten_fwd_bwd, flush=flush),
             "bound_ms": bound, "bound_by": bound_by,
-            "moved_mb": (2 * x.numel() * x.element_size()
-                         + 2 * y.numel() * y.element_size()) / 1e6,
+            "moved_mb": k4_moved_bytes(x, y) / 1e6,
+            "kernel_ms_profiler": kernel_ms,
         }
+        geometry[label] = {"path": geo.path, "grid": geo.grid, "threads": geo.threads,
+                           "smem": geo.smem, "per_sm": geo.per_sm, "waves": geo.waves,
+                           "patch": [geo.th, geo.tw], "group_units": geo.nv, "kd": geo.kd,
+                           "vec": geo.vec}
+        row["gb_per_s"] = row["moved_mb"] / row["ms"]
+        row["kernel_gb_per_s"] = kernel_ms and row["moved_mb"] / kernel_ms
         timing[label] = row
         log(f"{label} {tuple(shape)}: K4 {row['ms']:.4f} ms (bound {bound:.4f}, {bound_by}, "
-            f"{row['moved_mb']:.1f} MB), plain {row['plain_ms']:.4f}, ATen backward "
-            f"{row['aten_backward_ms']:.4f}; forward + backward K4 {row['fwd_bwd_ms']:.4f}, "
-            f"ATen {row['aten_fwd_bwd_ms']:.4f}; K4's passes (profiler, warm L2) "
-            + (f"A {passes['A']:.4f}, B {passes['B']:.4f}" if passes
-               else "not measured: the profiler lost their events"))
+            f"{row['moved_mb']:.1f} MB, {row['gb_per_s']:.0f} GB/s), plain {row['plain_ms']:.4f}, "
+            f"ATen backward {row['aten_backward_ms']:.4f}; forward + backward K4 "
+            f"{row['fwd_bwd_ms']:.4f}, ATen {row['aten_fwd_bwd_ms']:.4f}; {geo.path} path, "
+            f"{geo.grid} CTAs x {geo.threads}, {geo.smem} B shared, {geo.per_sm} an SM "
+            f"(the card's count), {geo.waves:.2f} waves; "
+            "the kernel (profiler, warm L2) "
+            + (f"{kernel_ms:.4f} ms, {row['kernel_gb_per_s']:.0f} GB/s" if kernel_ms
+               else "not measured: the profiler lost its events"))
         del x, y, gy, idx, xr
     del flush
     out.update(errs=errs, timing=timing, train_dtype_label=f"stem {str(train_dtype)[6:]}",
+               geometry=geometry,
                max_abs_err=max(r["k4_vs_plain"] for r in errs.values()),
                phase_s=time.time() - t_phase)
     log(f"phase 21 took {out['phase_s']:.1f} s")
@@ -4561,7 +4589,8 @@ def main() -> int:
         "shape": f"{pool['train_dtype_label']} {POOL_STEM}, 3^3/s2/p1",
         "per_shape": pool["timing"],
         "checks": pool["errs"],
-        "design_pr": 14,
+        "status": "redesigned PR 15",
+        "design_pr": 15,
     }]}
     log(json.dumps({"serving_vols_per_s": serve_rates,
                     "resident_vols_per_s": {str(k): v for k, v in resident_rates.items()},

@@ -18,7 +18,9 @@ Only stride 2 has a backward (NotImplementedError otherwise), as in the TPU
 package; the forward takes any stride.
 
 - On a CUDA tensor the backward is `max_pool_3d_fast_backward`, which
-  launches the hand-written kernel in csrc/max_pool.cu and raises on
+  launches the hand-written kernel in csrc/max_pool.cu, one launch a
+  backward, with the launch geometry `k4_geometry` computes here (tiling,
+  grid, shared memory; `card_geometry` on the card), and raises on
   anything it does not take.
 - On a CPU tensor it runs `max_pool_3d_fast_plain`, the TPU package's dense
   per-offset form in plain PyTorch: strided slices of the padded input, the
@@ -33,6 +35,8 @@ TPU package's is `nn.max_pool`): it is an operator of the port's API.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import asdict, dataclass
 from itertools import product
 
 import torch
@@ -43,9 +47,189 @@ from . import _build
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_ELEMS = 2 ** 31  # the kernel indexes in int32
 
+# The H100 SXM the kernel is written for (NVIDIA's data sheet; CUDA's sm_90 limits)
+SMS = 132
+SMEM_BLOCK = 232_448  # shared memory one block may request
+SMEM_SM = 233_472     # shared memory of an SM; each resident block also holds 1 KB
+REGS_SM = 65_536      # 32-bit registers of an SM
+REGS_THREAD = 128     # at most, by csrc/max_pool.cu's __launch_bounds__(256, 2)
+# K4's tiling: the fastest at the stem pool of the tilings timed on an H100
+# (PERF.md §6)
+STAGED_THREADS = 256
+DIRECT_THREADS = 128
+PATCH = (4, 8)    # input blocks along H and W of a staged CTA's patch
+GROUP_UNITS = 4   # 16-byte units of C a staged CTA takes (64 bytes a position)
+MIN_WAVES = 4     # D-chunks are cut until the grid holds this many waves
+
+# K4Geometry's fields in the order of csrc/max_pool.cu's struct Geo
+GEO_FIELDS = ("b", "d", "h", "w", "c", "od", "oh", "ow", "window", "padding",
+              "vec", "cvec", "nv", "lg_nv", "groups", "th", "tw", "kd", "nph", "npw", "ncd",
+              "wlo", "nwh", "nww", "xh", "xw", "xws", "nxs", "nys", "nis",
+              "ext_d", "ext_h", "ext_w", "ncol", "threads", "grid", "smem",
+              "off_y", "off_g", "off_inv")
+
 
 def _out_extent(n: int, window: int, stride: int, padding: int) -> int:
     return (n + 2 * padding - window) // stride + 1
+
+
+@dataclass(frozen=True)
+class K4Geometry:
+    """K4's launch geometry (see csrc/max_pool.cu). Sizes are in units of
+    `vec` channels (16 bytes, or one element); the fields of the other path
+    are 0.
+
+    Both paths cut the input into blocks: along an axis, block m holds the
+    inputs i in {2m - p, 2m - p + 1}, those whose last window is m, for m <
+    ext_* = ceil((n + p) / 2); its windows are m + wlo .. m, wlo = 1 -
+    ceil(w / 2).
+    direct (window <= 2): a thread a block and a unit; a CTA `threads` of
+    them along a row (b, md, mh) of blocks, `ncol` CTAs a row.
+    staged (window >= 3): a CTA takes th x tw blocks along (H, W) and kd
+    block planes along D, of one batch row and one group of nv units; its
+    windows start at the first block's + wlo (nwh x nww of them), which
+    read the x box of xh x xw positions from twice that, minus p. Shared
+    memory holds nxs x planes of the box (each row by column parity, xws
+    positions a parity), nys y planes, 2 g planes and nis float32 inv
+    planes of the windows."""
+
+    b: int
+    d: int
+    h: int
+    w: int
+    c: int
+    od: int
+    oh: int
+    ow: int
+    window: int
+    padding: int
+    vec: int
+    cvec: int
+    nv: int
+    lg_nv: int
+    groups: int
+    th: int
+    tw: int
+    kd: int
+    nph: int
+    npw: int
+    ncd: int
+    wlo: int
+    nwh: int
+    nww: int
+    xh: int
+    xw: int
+    xws: int
+    nxs: int
+    nys: int
+    nis: int
+    ext_d: int
+    ext_h: int
+    ext_w: int
+    ncol: int
+    threads: int
+    grid: int
+    smem: int
+    off_y: int
+    off_g: int
+    off_inv: int
+    per_sm: int  # blocks an SM holds (not passed to the kernel)
+
+    @property
+    def path(self) -> str:
+        return "direct" if self.window <= 2 else "staged"
+
+    @property
+    def waves(self) -> float:
+        return self.grid / (SMS * self.per_sm)
+
+    def as_ctypes(self):
+        values = asdict(self)
+        return (ctypes.c_int * len(GEO_FIELDS))(*(values[f] for f in GEO_FIELDS))
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _staged_smem(itemsize, vec, nv, window, nwh, nww, xh, xws):
+    """(off_y, off_g, off_inv, total) bytes of a staged CTA's rings."""
+    unit = vec * itemsize
+    w_plane = nwh * nww * nv
+    aw = _ceil_div(window, 2)
+    off_y = _ceil_div((window + 2) * xh * 2 * xws * nv * unit, 16) * 16
+    off_g = off_y + _ceil_div((aw + 1) * w_plane * unit, 16) * 16
+    off_inv = off_g + _ceil_div(2 * w_plane * unit, 16) * 16
+    return off_y, off_g, off_inv, off_inv + aw * w_plane * vec * 4
+
+
+def budget_blocks_per_sm(vec: int, threads: int, smem: int) -> int:
+    """Blocks of K4 an SM holds at the least: by shared memory, threads and
+    REGS_THREAD registers a thread (the card's count, which `card_geometry`
+    asks for, is at least this)."""
+    by_smem = SMEM_SM // (smem + 1024) if smem else 32
+    return min(by_smem, 2048 // threads, REGS_SM // (REGS_THREAD * threads), 32)
+
+
+def k4_geometry(shape, itemsize: int, window: int, padding: int, aligned: bool = True,
+                blocks_per_sm=budget_blocks_per_sm, *, _tiling=None) -> K4Geometry:
+    """K4's launch geometry for an input of `shape` (B, D, H, W, C) of
+    `itemsize`-byte elements at stride 2. `aligned`: x, y, g and dx start
+    on 16 bytes (else one-element units). `blocks_per_sm(vec, threads,
+    smem)`: the blocks of the kernel an SM holds; the staged path cuts D
+    into chunks until the grid holds MIN_WAVES waves of them. `_tiling`
+    ({"patch", "group_units", "kd"}) replaces the staged tiling's constants
+    (tests). Raises ValueError when a staged CTA's rings do not fit in
+    shared memory at any tiling."""
+    tiling = {"patch": PATCH, "group_units": GROUP_UNITS, "kd": None, **(_tiling or {})}
+    patch, group_units, kd = tiling["patch"], tiling["group_units"], tiling["kd"]
+    b, d, h, w, c = shape
+    od, oh, ow = (_out_extent(n, window, 2, padding) for n in (d, h, w))
+    lanes = 16 // itemsize
+    vec = lanes if aligned and c % lanes == 0 else 1
+    cvec = c // vec
+    ext_d, ext_h, ext_w = (_ceil_div(n + padding, 2) for n in (d, h, w))
+    f = dict.fromkeys((*GEO_FIELDS, "per_sm"), 0)
+    f.update(b=b, d=d, h=h, w=w, c=c, od=od, oh=oh, ow=ow, window=window, padding=padding,
+             vec=vec, cvec=cvec, ext_d=ext_d, ext_h=ext_h, ext_w=ext_w)
+    if window <= 2:
+        ncol = _ceil_div(ext_w * cvec, DIRECT_THREADS)
+        f.update(ncol=ncol, threads=DIRECT_THREADS, grid=b * ext_d * ext_h * ncol,
+                 per_sm=blocks_per_sm(vec, DIRECT_THREADS, 0))
+        return K4Geometry(**f)
+    wlo = 1 - _ceil_div(window, 2)
+    th, tw = min(patch[0], ext_h), min(patch[1], ext_w)
+    nv = 1 << (min(group_units, cvec).bit_length() - 1)  # a power of two
+    while True:
+        nwh, nww = th - wlo, tw - wlo
+        xh, xw = 2 * nwh - 2 + window, 2 * nww - 2 + window
+        xws = _ceil_div(xw, 2) | 1  # odd: the two parities of a row on other banks
+        off_y, off_g, off_inv, smem = _staged_smem(itemsize, vec, nv, window, nwh, nww, xh, xws)
+        if smem <= SMEM_BLOCK:
+            break
+        if tw > 1:
+            tw = _ceil_div(tw, 2)
+        elif th > 1:
+            th = _ceil_div(th, 2)
+        elif nv > 1:
+            nv //= 2
+        else:
+            raise ValueError(f"K4: a {window}^3 window's rings need {smem} bytes of shared "
+                             f"memory, more than {SMEM_BLOCK}")
+    groups = _ceil_div(cvec, nv)
+    nph, npw = _ceil_div(ext_h, th), _ceil_div(ext_w, tw)
+    aw = _ceil_div(window, 2)
+    f.update(nv=nv, lg_nv=nv.bit_length() - 1, groups=groups, th=th, tw=tw, nph=nph, npw=npw,
+             wlo=wlo, nwh=nwh, nww=nww, xh=xh, xw=xw, xws=xws, nxs=window + 2, nys=aw + 1,
+             nis=aw, threads=STAGED_THREADS, smem=smem, off_y=off_y, off_g=off_g,
+             off_inv=off_inv, per_sm=blocks_per_sm(vec, STAGED_THREADS, smem))
+    if kd is None:
+        base_grid = b * groups * nph * npw
+        kd = _ceil_div(ext_d, min(ext_d, _ceil_div(MIN_WAVES * SMS * f["per_sm"], base_grid)))
+    kd = max(1, min(kd, ext_d))
+    ncd = _ceil_div(ext_d, kd)
+    f.update(kd=kd, ncd=ncd, grid=b * groups * nph * npw * ncd)
+    return K4Geometry(**f)
 
 
 def _check_input(x: torch.Tensor) -> None:
@@ -113,13 +297,43 @@ def max_pool_3d_fast_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
 def _lib():
     lib = _build.load("max_pool")
     fn = lib.mad_max_pool_backward
-    if fn.argtypes is None:  # first use: declare the C signature
+    if fn.argtypes is None:  # first use: declare the C signatures
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, p, i, p]
+        fn.argtypes = [p, p, p, i, p, i, p, i, p]
         fn.restype = ctypes.c_int
+        lib.mad_max_pool_blocks_per_sm.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+        lib.mad_max_pool_blocks_per_sm.restype = ctypes.c_int
         lib.mad_max_pool_error_string.argtypes = [ctypes.c_int]
         lib.mad_max_pool_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_rc(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {lib.mad_max_pool_error_string(rc).decode()}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_blocks_per_sm(device: int, dtype: torch.dtype, window: int, vec: int, threads: int,
+                        smem: int) -> int:
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _check_rc(lib, lib.mad_max_pool_blocks_per_sm(_CODES[dtype], window, vec, threads, smem,
+                                                  device, ctypes.byref(blocks)),
+              "max_pool occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"K4: no block of {threads} threads and {smem} B of shared memory "
+                           "fits an SM")
+    return blocks.value
+
+
+def card_geometry(x: torch.Tensor, window: int, padding: int, aligned: bool = True) -> K4Geometry:
+    """`k4_geometry` of the CUDA tensor x, with the blocks an SM holds as
+    its card counts them for the kernel the launch runs (registers too:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return k4_geometry(tuple(x.shape), x.element_size(), window, padding, aligned,
+                       functools.partial(_card_blocks_per_sm, x.device.index or 0, x.dtype,
+                                         window))
 
 
 def max_pool_3d_fast_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
@@ -152,16 +366,14 @@ def max_pool_3d_fast_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     if x.numel() == 0:
         return dx
     x, y, g = x.contiguous(), y.contiguous(), g.contiguous()
-    inv = torch.empty(out, dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, g, dx))
+    geo = card_geometry(x, window, padding, aligned).as_ctypes()
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.mad_max_pool_backward(
-        x.data_ptr(), y.data_ptr(), g.data_ptr(), _CODES[x.dtype], b, d, h, w, c,
-        *out[1:4], window, padding, inv.data_ptr(), dx.data_ptr(), x.device.index or 0,
-        stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"max_pool backward launch failed: {lib.mad_max_pool_error_string(rc).decode()}")
+    _check_rc(lib, lib.mad_max_pool_backward(x.data_ptr(), y.data_ptr(), g.data_ptr(),
+                                             _CODES[x.dtype], geo, len(geo), dx.data_ptr(),
+                                             x.device.index or 0, stream),
+              "max_pool backward launch")
     max_pool_3d_fast_backward.launches += 1
     return dx
 

@@ -596,7 +596,7 @@ def _state_dict_from_flax_rows(variables, rows) -> "OrderedDict[str, torch.Tenso
         w = np.asarray(leaves[path], np.float32)
         if transform is not None:
             w = transform(w)
-        sd[tname] = torch.from_numpy(np.ascontiguousarray(w))
+        sd[tname] = torch.from_numpy(np.array(w, order="C"))  # own copy
     return sd
 
 

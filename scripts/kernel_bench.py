@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels, K1 (gather + min-max normalize), K2
-(atlas ROI pooling) and K3 (int8 conv), on one NVIDIA GPU at the shapes
-the main paths give them, beside their bounds and a library yardstick.
+(atlas ROI pooling), K3 (int8 conv) and K4 (the tie-splitting max-pool
+backward), on one NVIDIA GPU at the shapes the main paths give them,
+beside their bounds and a library yardstick.
 
     python3 scripts/kernel_bench.py [--pkg-root DIR] [--label NAME] [--reps N]
-                                    [--only k1,k2,k3] [--k3-variants]
+                                    [--only k1,k2,k3,k4] [--k3-variants]
+                                    [--k4-variants]
 
 K3 runs the flagship's ten block-conv shapes of `chip_smoke.py::K3_SHAPES`
 at B = 8, each in the epilogues the int8 path runs on it, and sums a
@@ -21,6 +23,16 @@ with cp.async instead of TMA and `no_sw64` takes C_in = 64 without the
 division by a multiply, leave out the epilogue, leave out every copy
 (timing only: their results are wrong). A replaced line that is no
 longer in the source stops the run.
+
+K4 runs chip_smoke.py phase 21's three shapes (the ResNet-18 stem pool
+in bf16 and float32, the U-Net pool in bf16) on ReLU'd normal inputs,
+beside the byte bound, ATen's max-pool backward from saved indices and
+the plain version; it is in the default set only from the package that
+has it. `--k4-variants` (this checkout only) times, at the stem pool, copies of K4's source with a part of the
+staged kernel left out (timing only: their results are wrong), built like
+K3's variants: `no_finalize` (no dx), `no_count` (no count and inv),
+`no_compute` (neither: the copies and barriers alone), `no_copies` (no
+staging into shared memory): where the staged kernel's time goes.
 
 `--pkg-root` names the directory that holds the `multimodal_ad_tpu_torch`
 package to time (default: this checkout), so one run on the card can
@@ -49,13 +61,16 @@ def main(argv=None) -> int:
     ap.add_argument("--pkg-root", default=ROOT)
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=25)
-    ap.add_argument("--only", default="k1,k2,k3", help="comma-separated kernels to time")
+    ap.add_argument("--only", default="k1,k2,k3,k4", help="comma-separated kernels to time")
     ap.add_argument("--k3-variants", action="store_true",
                     help="also time patched copies of K3's source (this checkout only)")
+    ap.add_argument("--k4-variants", action="store_true",
+                    help="also time parts of K4 left out (this checkout only)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
-    if args.k3_variants and os.path.abspath(args.pkg_root) != ROOT:
-        ap.error("--k3-variants patches this checkout's source: leave --pkg-root out")
+    if (args.k3_variants or args.k4_variants) and os.path.abspath(args.pkg_root) != ROOT:
+        ap.error("--k3-variants and --k4-variants use this checkout's source: "
+                 "leave --pkg-root out")
 
     import torch
 
@@ -76,7 +91,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
     res = {"label": args.label, "pkg": os.path.abspath(args.pkg_root), "card": card,
-           "k1": {}, "k2": {}, "k3": {}}
+           "k1": {}, "k2": {}, "k3": {}, "k4": {}}
 
     def timed(fn):
         return cs.time_cuda(torch, fn, reps=args.reps, flush=flush)
@@ -102,6 +117,17 @@ def main(argv=None) -> int:
             from multimodal_ad_tpu_torch.ops import _build
             variants = build_k3_variants(_build)
         k3_bench(torch, cs, k3, dev, timed, res, variants)
+    if "k4" in only:
+        try:
+            from multimodal_ad_tpu_torch.ops import pool as k4
+        except ImportError:  # a package from before K4
+            k4 = None
+        if k4 is not None:
+            variants = {}
+            if args.k4_variants:
+                from multimodal_ad_tpu_torch.ops import _build
+                variants = build_variants(_build, "max_pool", K4_VARIANTS)
+            k4_bench(torch, cs, k4, dev, timed, res, variants)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -209,13 +235,19 @@ K3_VARIANTS = {
 
 def build_k3_variants(_build) -> dict:
     """Compile every K3 variant (one nvcc each, in parallel) -> {name: (CDLL, bit_equal)}."""
+    return build_variants(_build, "int8_conv", K3_VARIANTS)
+
+
+def build_variants(_build, source: str, table: dict) -> dict:
+    """Compile each variant of csrc/<source>.cu in `table` ({name: (edits,
+    bit_equal)}; one nvcc each, in parallel) -> {name: (CDLL, bit_equal)}."""
     import ctypes
 
-    src = (_build.CSRC / "int8_conv.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, (edits, _) in K3_VARIANTS.items():
+    for name, (edits, _) in table.items():
         text = src
         for old, new in edits:
             if old not in text:
@@ -231,7 +263,7 @@ def build_k3_variants(_build) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        libs[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), K3_VARIANTS[name][1])
+        libs[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), table[name][1])
     return libs
 
 
@@ -315,6 +347,78 @@ def k3_bench(torch, cs, k3, dev, timed, res, variants=None):
         res["k3"]["forward_variants_ms"] = total_variants
         print("K3 variants, the 19 block convs of a forward (ms): "
               + ", ".join(f"{v} {t:.3f}" for v, t in total_variants.items()), flush=True)
+
+
+K4_CASES = [("stem bf16", "POOL_STEM", 3, 1, "bfloat16"),
+            ("stem f32", "POOL_STEM", 3, 1, "float32"),
+            ("unet bf16", "POOL_UNET", 2, 0, "bfloat16")]
+
+
+_K4_NO_FINALIZE = ("      finalize(bd, xsl, ysm, ism);", "")
+_K4_NO_COUNT = ("      Counter<T, kVec, kPacked> cnt(yp[at]);",
+                "      if (s.grid > 0) return;\n      Counter<T, kVec, kPacked> cnt(yp[at]);")
+# name: (the source's lines and their replacements, bit_equal); none is bit-equal
+K4_VARIANTS = {
+    "no_finalize": ([_K4_NO_FINALIZE], False),
+    "no_count": ([_K4_NO_COUNT], False),
+    "no_compute": ([_K4_NO_FINALIZE, _K4_NO_COUNT], False),
+    "no_copies": ([("  auto stage_x = [&](int xd) {\n",
+                    "  auto stage_x = [&](int xd) {\n    if (s.grid > 0) return;\n"),
+                   ("  auto stage_yg = [&](int md) {\n",
+                    "  auto stage_yg = [&](int md) {\n    if (s.grid > 0) return;\n")], False),
+}
+
+
+def k4_bench(torch, cs, k4, dev, timed, res, variants=None):
+    """K4 at phase 21's shapes beside its bound, ATen's backward and the
+    plain version; with `variants` ({name: (CDLL, bit_equal)}), the stem
+    pool through each."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    for name, shape_name, window, padding, dtype_name in K4_CASES:
+        shape, dtype = getattr(cs, shape_name), getattr(torch, dtype_name)
+        x = torch.randn(shape, generator=g, device=dev).clamp_(min=0).to(dtype)
+        y = k4.max_pool_3d_fast(x, window, 2, padding)
+        gy = torch.randn(tuple(y.shape), generator=g, device=dev).to(dtype)
+        xp = x.permute(0, 4, 1, 2, 3)
+        _, idx = F.max_pool3d(xp, window, 2, padding, return_indices=True)
+        gp = gy.permute(0, 4, 1, 2, 3)
+
+        def aten():
+            return torch.ops.aten.max_pool3d_with_indices_backward(
+                gp, xp, [window] * 3, [2] * 3, [padding] * 3, [1] * 3, False, idx)
+
+        bound, by = cs.k4_bound_ms(x, y, window)
+        ms = timed(lambda: k4.max_pool_3d_fast_backward(x, y, gy, window, padding))
+        row = {"ms": ms, "bound_ms": bound, "bound_by": by, "aten_backward_ms": timed(aten),
+               "plain_ms": timed(lambda: k4.max_pool_3d_fast_plain(x, y, gy, window, padding)),
+               "gb_per_s": cs.k4_moved_bytes(x, y) / ms / 1e6}
+        if hasattr(k4, "card_geometry"):
+            geo = k4.card_geometry(x, window, padding)
+            row["geometry"] = {"path": geo.path, "grid": geo.grid, "threads": geo.threads,
+                               "smem": geo.smem, "per_sm": geo.per_sm, "waves": geo.waves,
+                               "patch": [geo.th, geo.tw], "group_units": geo.nv, "kd": geo.kd}
+        res["k4"][name] = row
+        print(f"K4 {name:10s} {tuple(shape)} {ms:.4f} ms  bound {bound:.4f} ms ({by}) -> "
+              f"{bound / ms:.1%}, {row['gb_per_s']:.0f} GB/s; ATen {row['aten_backward_ms']:.4f}, "
+              f"plain {row['plain_ms']:.4f}"
+              + (f"; {geo.path}, {geo.grid} CTAs x {geo.threads}, {geo.smem} B shared, "
+                 f"{geo.per_sm} an SM, {geo.waves:.2f} waves" if "geometry" in row else ""),
+              flush=True)
+        if variants and shape_name == "POOL_STEM":
+            from multimodal_ad_tpu_torch.ops import _build
+            kernel = _build.load("max_pool")
+            row["variants_ms"] = {}
+            for vname, (lib, _) in variants.items():
+                _build._loaded["max_pool"] = lib
+                k4._lib()  # declares the C signature on first use
+                row["variants_ms"][vname] = timed(
+                    lambda: k4.max_pool_3d_fast_backward(x, y, gy, window, padding))
+            _build._loaded["max_pool"] = kernel
+            print("   variants " + " ".join(f"{v} {t:.4f}" for v, t in row["variants_ms"].items()),
+                  flush=True)
+        del x, y, gy, idx, xp, gp
 
 
 if __name__ == "__main__":

@@ -101,8 +101,8 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    against the same export and scales on the host CPU (2 volumes;
    probabilities within 1e-2, and from one stem output the quant points
    bit-equal), resident int8 and bf16 vols/s at B = 8 and 32 and
-   `predict_proba` vols/s, the s2d bf16 stem's time against the fp32 7^3
-   stem's, a profile of one int8 batch split into K3, stem, quantize and
+   `predict_proba` vols/s, the int8 model's s2d bf16 stem's time against
+   the bf16 model's stem's, a profile of one int8 batch split into K3, stem, quantize and
    elementwise, max pool, with the device kernels each launches a fold;
    and phase 8's trained folds quantized with
    training volumes: `evaluate_records` AUC of int8 within 0.01 of bf16
@@ -266,7 +266,25 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    achieved GB/s, its launch geometry (with the blocks an SM holds as the
    card counts them), and its one kernel's device time (torch.profiler);
    K4's ptxas lines (registers, spills) first;
-22. one JSON line {"kernels": [...]} (with each kernel's launches in phase
+22. the ResNet's two stems and `remat` (the JAX default stem, ported in
+   slice 16): (a) phase 4's five folds built with ``s2d_stem`` True and
+   False, resident bf16 serving of 8 of phase 4's volumes through each
+   (K1), the probabilities within 5e-3; fold 1's stem conv in fp32 (TF32
+   off), s2d against plain, within 1e-4 of the output's spread; phase 4's
+   card-vs-host fp32 logits (the s2d stem) recalled; (b) the stem alone,
+   both forms, bf16 (autocast over fp32 parameters) and fp32, the conv and
+   conv + BN + ReLU + max pool, forward (eval, no gradients) and forward +
+   backward (train), at B = 8 and 32 (medians of 25, L2 flushed); resident
+   bf16 serving at B = 32 through each form: the 5-fold forward's time and
+   a profile of 2 batches with each fold's stem and its conv in ranges,
+   their shares of device time; (c) a resident train step at B = 8 (K1,
+   augmentation, forward, backward, Adam) of a fresh ResNet-18 with and
+   without `remat` from the same weights, fp32 and bf16: the first step on
+   one fixed batch (loss within 1e-6 relative and the BatchNorm statistics
+   equal in fp32), then the step's time (median of 6) and peak memory;
+   the bf16 step at B = 32 (K1 gathers, no augmentation) with and without
+   `remat`: time (median of 4) and peak memory;
+23. one JSON line {"kernels": [...]} (with each kernel's launches in phase
    19 by rank and run, `launches_data_parallel`, and in phase 20,
    `launches_spatial`) and, last, the device line.
 
@@ -1247,22 +1265,23 @@ def int8_phase(torch, dev, card, work, ckpt_dir, vols, train_ckpt, tr_val, test_
     log(f"predict_proba on {len(vols)} host volumes (chunks 8 + 4, 5 folds, median of 3): "
         f"int8 {serve['int8']:.2f} vols/s, bf16 {serve['bf16']:.2f} vols/s on {card}")
 
-    # the s2d bf16 stem against the fp32 7^3 stem under bf16 autocast
+    # the int8 model's s2d bf16 stem against the bf16 model's stem (StemConv, s2d by
+    # default) under bf16 autocast
     x8 = ds.gather_normalized(np.arange(BATCH) % len(vols), torch.bfloat16)["image"]
     net, fold = pred8.int8_folds[0], pred16.folds[0]
     with torch.inference_mode():
         s2d_ms = time_cuda(torch, lambda: net.stem(x8), flush=flush)
         x_ncdhw = x8.permute(0, 4, 1, 2, 3)
 
-        def stem_fp32():
+        def stem_bf16_model():
             with torch.autocast(x_ncdhw.device.type, dtype=torch.bfloat16):
                 return fold.maxpool(torch.relu(fold.bn1(fold.conv1(x_ncdhw))))
 
-        stem7_ms = time_cuda(torch, stem_fp32, flush=flush)
-    out["stem_s2d_bf16_ms"], out["stem_7cubed_autocast_ms"] = s2d_ms, stem7_ms
-    log(f"stem of one fold at B={BATCH}: s2d bf16 (conv 4^3 over 8 phases + affine + ReLU + "
-        f"max pool) {s2d_ms:.3f} ms; the bf16 model's 7^3 stride-2 stem (conv + BN + ReLU + max "
-        f"pool, autocast) {stem7_ms:.3f} ms")
+        model_stem_ms = time_cuda(torch, stem_bf16_model, flush=flush)
+    out["stem_s2d_bf16_ms"], out["stem_bf16_model_ms"] = s2d_ms, model_stem_ms
+    log(f"stem of one fold at B={BATCH}: the int8 model's s2d bf16 (conv 4^3 over 8 phases + "
+        f"affine + ReLU + max pool) {s2d_ms:.3f} ms; the bf16 model's stem (s2d: "
+        f"{fold.conv1.s2d}; conv + BN + ReLU + max pool, autocast) {model_stem_ms:.3f} ms")
 
     # profile of one int8 batch of 8 (5 folds), split by kind
     with torch.inference_mode(), torch.profiler.profile(
@@ -3701,6 +3720,231 @@ def max_pool_phase(torch, dev, card):
     return out
 
 
+def _time_attr(e, names):
+    for name in names:
+        v = getattr(e, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def stem_share(torch, pred, x, n=2):
+    """(stem device ms, stem conv device ms, all device ms) a call of
+    `pred.forward(x)`, from `n` calls under torch.profiler: each fold's
+    stem (conv1 to the max pool) runs inside a "stem" range and its conv1
+    inside a "stem conv" range (forward hooks); a range's device time is
+    the kernels launched inside it. The ranges' own device-side rows (their
+    spans on the card) are left out of the total."""
+    ranges, handles = [], []
+
+    def enter(mod, args):
+        for name in ("stem", "stem conv"):
+            ranges.append(torch.profiler.record_function(name).__enter__())
+
+    def leave(mod, args, y):
+        ranges.pop().__exit__(None, None, None)
+
+    for m in pred.folds:
+        handles.append(m.conv1.register_forward_pre_hook(enter))
+        handles.append(m.conv1.register_forward_hook(leave))
+        handles.append(m.maxpool.register_forward_hook(leave))
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                pred.forward(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    total = sum(device_us(e) for e in prof.key_averages() if e.key not in ("stem", "stem conv"))
+
+    def inside(name):
+        return sum(_time_attr(e, ("device_time_total", "cuda_time_total"))
+                   for e in prof.events()
+                   if e.name == name and str(e.device_type).endswith("CPU"))
+
+    return inside("stem") / 1e3 / n, inside("stem conv") / 1e3 / n, total / 1e3 / n
+
+
+def stem_remat_phase(torch, dev, card, ctx):
+    """Phase 22: the space-to-depth stem (`StemConv`, the default) against
+    the plain 7^3 stem on the same folds, their times alone and their share
+    of resident serving, and a resident train step with and without
+    `remat`, ResNet-18 at full width."""
+    import torch.nn.functional as F
+
+    from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D, generate_model
+    from multimodal_ad_tpu_torch.ops import fused_gather as fg
+    from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+    from multimodal_ad_tpu_torch.train import checkpoint as ckpt
+    from multimodal_ad_tpu_torch.train import loop
+
+    t_phase = time.time()
+    out = {"card": card}
+    log(f"== 22. the s2d stem against the plain 7^3 stem, and remat; ResNet-18 B at "
+        f"91x109x91 ({card})")
+    sds = [ckpt.restore_state(os.path.join(ctx["ckpt_dir"], f"best_fold{k}"))[0]
+           for k in range(1, N_FOLDS + 1)]
+    vols = ctx["vols"]
+    labels = np.arange(len(vols)) % 2
+    fg.gather_normalize.launches = 0  # phase 22's path: resident serving and training
+
+    # (a) the two stems on phase 4's folds
+    ds = DeviceDataset(vols[..., None], labels, quantize="uint8")
+    preds = {s2d: EnsemblePredictor(generate_model(model_depth=18, s2d_stem=s2d), sds,
+                                    batch_size=BATCH, device=dev) for s2d in (True, False)}
+    check(all(m.conv1.s2d for m in preds[True].folds)
+          and not any(m.conv1.s2d for m in preds[False].folds), "stem forms mixed up")
+    x8 = ds.gather_normalized(np.arange(BATCH), torch.bfloat16)["image"]
+    probs = {s2d: p.forward(x8).cpu().numpy() for s2d, p in preds.items()}
+    out["prob_max_abs_diff"] = float(np.abs(probs[True] - probs[False]).max())
+    log(f"(a) resident bf16 serving, {N_FOLDS} folds, B = {BATCH}: s2d vs plain stem max "
+        f"|dprob| {out['prob_max_abs_diff']:.3g} (bound 5e-3)")
+    check(out["prob_max_abs_diff"] <= 5e-3,
+          f"the s2d and plain stems' ensembles differ by {out['prob_max_abs_diff']}")
+    x32 = ds.gather_normalized(np.arange(BATCH), torch.float32)["image"].permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        ys, yp = preds[True].folds[0].conv1(x32), preds[False].folds[0].conv1(x32)
+    spread = float(yp.max() - yp.min())
+    out["stem_fp32_max_abs_diff"] = float((ys - yp).abs().max())
+    out["stem_fp32_spread"] = spread
+    log(f"    fold 1's stem conv in fp32 (TF32 off), B = {BATCH}: s2d vs plain max |d| "
+        f"{out['stem_fp32_max_abs_diff']:.3g}, {out['stem_fp32_max_abs_diff'] / spread:.3g} "
+        f"of the spread {spread:.4g} (bound 1e-4)")
+    check(out["stem_fp32_max_abs_diff"] <= 1e-4 * spread,
+          f"the s2d stem is {out['stem_fp32_max_abs_diff']} from the plain stem in fp32")
+    out["card_vs_host_fp32_logits"] = ctx["card_vs_host_d"]
+    log(f"    card vs host fp32 logits of fold 1 with the s2d stem (phase 4): max |d| "
+        f"{ctx['card_vs_host_d']:.3g} (bound 2e-3)")
+    del ys, yp, x32
+
+    # (b) the stem alone, both forms, both types; forward in eval mode without
+    # gradients (serving), forward + backward in train mode (training)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    times = {}
+    for b in (BATCH, 32):
+        x = torch.randn((b, *VOL_SHAPE, 1), generator=g, device=dev).permute(0, 4, 1, 2, 3)
+        for s2d, p in preds.items():
+            m = p.folds[0]
+            for dt in ("bf16", "fp32"):
+                for part in ("conv", "conv+bn+relu+pool"):
+                    def fwd():
+                        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dt == "bf16"):
+                            h = m.conv1(x)
+                            return h if part == "conv" else m.maxpool(F.relu(m.bn1(h)))
+
+                    m.eval()
+                    with torch.no_grad():
+                        f_ms = time_cuda(torch, fwd, flush=flush)
+                    m.train().requires_grad_(True)
+                    cot = torch.randn(fwd().shape, generator=g, device=dev).to(
+                        torch.bfloat16 if dt == "bf16" else torch.float32)
+                    fb_ms = time_cuda(torch, lambda: fwd().backward(cot), flush=flush)
+                    m.eval().requires_grad_(False)
+                    key = f"{'s2d' if s2d else 'plain'} {dt} {part} B={b}"
+                    times[key] = {"fwd_ms": f_ms, "fwd_bwd_ms": fb_ms}
+                    log(f"(b) stem {key:34s} forward {f_ms:8.3f} ms, forward + backward "
+                        f"{fb_ms:8.3f} ms (median of 25, L2 flushed)")
+        del x
+    out["stem_times"] = times
+    del flush
+    for p in preds.values():  # the timing runs moved fold 1's BatchNorm statistics
+        p.folds[0].load_state_dict(sds[0])
+
+    x32b = ds.gather_normalized(np.arange(32) % len(vols), torch.bfloat16)["image"]
+    for s2d, p in preds.items():
+        name = "s2d" if s2d else "plain"
+        fwd_ms, _ = step_events(torch, lambda: p.forward(x32b), 5, warmup=1)
+        stem_ms, conv_ms, dev_ms = stem_share(torch, p, x32b)
+        out[f"resident_b32_{name}"] = {"forward_ms": fwd_ms, "vols_per_s": 32 / (fwd_ms / 1e3),
+                                       "device_ms": dev_ms, "stem_device_ms": stem_ms,
+                                       "stem_conv_device_ms": conv_ms,
+                                       "stem_share": stem_ms / dev_ms,
+                                       "stem_conv_share": conv_ms / dev_ms}
+        log(f"(b) resident bf16 serving, B = 32, {name} stem: {N_FOLDS}-fold forward "
+            f"{fwd_ms:.3f} ms ({32 / (fwd_ms / 1e3):.2f} vols/s, CUDA events, median of 5); "
+            f"profile: {dev_ms:.3f} ms of device time a batch, the stems (conv to max pool) "
+            f"{stem_ms:.3f} ms = {stem_ms / dev_ms:.1%}, their convs {conv_ms:.3f} ms = "
+            f"{conv_ms / dev_ms:.1%}")
+        check(0 < conv_ms < stem_ms < dev_ms,
+              f"the profile saw {conv_ms} / {stem_ms} ms of stem in {dev_ms} ms")
+    del preds, x8, x32b, ds
+
+    # (c) a resident train step at B = 8 with and without remat
+    train_ds = DeviceDataset(vols[..., None], labels, store_dtype=np.float32)
+    it = DeviceEpochIterator(train_ds, np.arange(train_ds.n), BATCH, shuffle=True,
+                             seed=SEED, augment=True)
+    batches = (bt for _ in range(64) for bt in it)
+    fixed = next(batches)
+    cw = torch.tensor([0.5, 0.5], device=dev)
+    base = ResNet3D(depth=18, generator=torch.Generator().manual_seed(SEED + 23)).state_dict()
+    steps = {}
+    for dt, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for remat in (False, True):
+            m = ResNet3D(depth=18, compute_dtype=dt, remat=remat)
+            m.load_state_dict(base)
+            state = loop.create_train_state(m.to(dev), loop.make_epoch_schedule(1e-3, 20),
+                                            dropout_seed=SEED)
+            loss = float(loop.train_step(state, fixed, cw)[0])
+            r = {"loss": loss,
+                 "stats": {k: v.clone() for k, v in m.state_dict().items()
+                           if ".running_" in k or "num_batches" in k},
+                 "grads": torch.cat([p.grad.flatten() for p in m.parameters()])}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            r["ms"], _ = step_events(torch, lambda: loop.train_step(state, next(batches), cw),
+                                     6, warmup=1)
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            steps[(dname, remat)] = r
+            del state, m
+    for dname in ("fp32", "bf16"):
+        a, b = steps[(dname, False)], steps[(dname, True)]
+        rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        stats_equal = all(torch.equal(a["stats"][k], v) for k, v in b["stats"].items())
+        dg = float((a["grads"] - b["grads"]).abs().max() / a["grads"].abs().max())
+        out[f"train_{dname}"] = {"ms": a["ms"], "remat_ms": b["ms"], "peak_gb": a["peak_gb"],
+                                 "remat_peak_gb": b["peak_gb"], "loss": a["loss"],
+                                 "remat_loss": b["loss"], "loss_rel": rel,
+                                 "stats_equal": stats_equal, "grad_max_rel": dg}
+        log(f"(c) resident {dname} train step, B = {BATCH} (K1 + augmentation + step; median "
+            f"of 6, CUDA events): {a['ms']:.2f} ms, remat {b['ms']:.2f} ms; peak memory "
+            f"{a['peak_gb']:.2f} GB, remat {b['peak_gb']:.2f} GB; first step's loss "
+            f"{a['loss']:.7f} / {b['loss']:.7f} (rel {rel:.3g}), BatchNorm statistics equal "
+            f"{stats_equal}, clipped gradients max |d| {dg:.3g} of max |g|")
+    check(out["train_fp32"]["loss_rel"] <= 1e-6 and out["train_fp32"]["stats_equal"],
+          f"the fp32 remat step differs: {out['train_fp32']}")
+    # the bf16 step at B = 32 (K1 gathers with repeats, no augmentation)
+    idx32 = np.arange(32) % train_ds.n
+    for remat in (False, True):
+        m = ResNet3D(depth=18, remat=remat)
+        m.load_state_dict(base)
+        state = loop.create_train_state(m.to(dev), loop.make_epoch_schedule(1e-3, 20),
+                                        dropout_seed=SEED)
+        loop.train_step(state, train_ds.gather_normalized(idx32), cw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = step_events(
+            torch, lambda: loop.train_step(state, train_ds.gather_normalized(idx32), cw), 4,
+            warmup=1)
+        key = "remat" if remat else "plain"
+        out[f"train_bf16_b32_{key}"] = {"ms": ms,
+                                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, m
+    a, b = out["train_bf16_b32_plain"], out["train_bf16_b32_remat"]
+    log(f"(c) resident bf16 train step, B = 32 (K1 + step, median of 4): {a['ms']:.2f} ms, "
+        f"remat {b['ms']:.2f} ms; peak memory {a['peak_gb']:.2f} GB, remat "
+        f"{b['peak_gb']:.2f} GB")
+    out["k1_launches"] = fg.gather_normalize.launches
+    log(f"K1 launches in phase 22: {out['k1_launches']}")
+    check(out["k1_launches"] > 0, "phase 22 never launched K1")
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 22 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def _timed_ms(fn):
     t0 = time.perf_counter()
     fn()
@@ -3960,6 +4204,8 @@ def main() -> int:
         f"(card {card_logits.ravel().round(4).tolist()})")
     check(np.allclose(card_logits, host_logits, rtol=2e-3, atol=2e-3),
           f"card and host fp32 logits differ by {d}")
+    check(fold.conv1.s2d, "the default fold does not run the s2d stem")
+    fold_card_host_d = d
     del fold, x2
 
     serve_rates = {}
@@ -4474,12 +4720,16 @@ def main() -> int:
     # ---- 20. spatial sharding and the 2-D mesh --------------------------------
     sp = spatial_phase(torch, dev, card, work, {"tr_val": tr_val, "ckpt_dir": ckpt_dir,
                                                 "vols": vols})
-    shutil.rmtree(work, ignore_errors=True)
 
     # ---- 21. K4, the tie-splitting max-pool backward ---------------------------
     pool = max_pool_phase(torch, dev, card)
 
-    # ---- 22. result ----------------------------------------------------
+    # ---- 22. the s2d stem against the plain stem, and remat -------------------
+    stem = stem_remat_phase(torch, dev, card, {"ckpt_dir": ckpt_dir, "vols": vols,
+                                               "card_vs_host_d": fold_card_host_d})
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 23. result ----------------------------------------------------
     ms, plain_ms, bound, bound_by = timings["serving f32->bf16 B=8"]
     k3_top = q8["k3_shapes"][-1]  # stage 4, 3^3 d4, 512->512 (the last block's conv2)
     kernels = {"kernels": [{
@@ -4490,7 +4740,8 @@ def main() -> int:
         "launches": (serve_launches + resident_launches + ext_k1 + train_launches
                      + unet["k1_launches"] + ae["k1_launches"] + ae["extraction_k1"]
                      + q8["k1_launches"] + dense["k1_launches"] + enc["k1_launches"]
-                     + fuse["k1_launches"] + fuse["daft_k1_launches"]),
+                     + fuse["k1_launches"] + fuse["daft_k1_launches"]
+                     + stem["k1_launches"]),
         "launches_serving": serve_launches,
         "launches_resident": resident_launches,
         "launches_extraction": ext_k1,
@@ -4503,6 +4754,7 @@ def main() -> int:
         "launches_encoder_extraction": enc["k1_launches"],
         "launches_fusion_training": fuse["k1_launches"],
         "launches_daft_training": fuse["daft_k1_launches"],
+        "launches_stem_remat": stem["k1_launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4618,6 +4870,7 @@ def main() -> int:
                                       if k != "launches_data_parallel"},
                     "spatial": {k: v for k, v in sp.items() if k != "launches_spatial"},
                     "max_pool": {k: v for k, v in pool.items() if k not in ("timing", "errs")},
+                    "stem_remat": stem,
                     "build_s": build_s,
                     "card": card, "seconds": time.time() - t_start}))
     log(json.dumps(kernels))

@@ -22,9 +22,21 @@ head's layers conv_seg.0 (transposed conv), .1 (BN), .3 (conv), .4 (BN)
 and .6 (conv), .2 and .5 its ReLUs, as in MedicalNet's `conv_seg`), so
 utils/torch_weights.py's name map fixes the state_dict key set and
 `load_medicalnet_weights` transfers a pretrained seg head by key
-intersection. The TPU package's space-to-depth stem computes
-the same convolution from the same (7,7,7,C,64) parameter; here the stem is
-a plain Conv3d and cuDNN picks its algorithm.
+intersection.
+
+The stem (`StemConv`) is a Conv3d(C, 64, 7, stride 2, padding 3) whose
+forward, as the TPU package's default, computes that convolution by
+space-to-depth: the 2^3 input phases packed onto the channel axis and a
+dense 4^3 stride-1 convolution over the half-resolution grid, its kernel
+gathered from the 7^3 parameter on every call (`stem_s2d_weight`,
+`stem_s2d_pack`). ``s2d_stem=False`` runs the plain convolution on the same
+parameter; both give the same state_dict.
+
+``remat=True`` rematerializes each residual block in training
+(`torch.utils.checkpoint`, as the TPU package's `nn.remat` per block): the
+block's activations are recomputed in the backward, and its BatchNorms then
+normalize by the batch's statistics without updating their running ones
+again (`recomputing`), so the statistics move once a step.
 
 Public forward takes the channels-last (B, X, Y, Z, C) layout and works in
 NCDHW inside. With ``compute_dtype=torch.bfloat16`` the forward runs under
@@ -41,9 +53,15 @@ Training semantics held to the TPU package's flax modules:
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 DEPTH_BLOCKS = {
     10: ("basic", (1, 1, 1, 1)),
@@ -88,6 +106,114 @@ def global_avg_pool(x):
     return x.mean(dim=(1, 2, 3))
 
 
+def _stem_s2d_index_map() -> np.ndarray:
+    """Tap map of the space-to-depth stem: entry [td, th, tw, phase] is the
+    flat index into the 7^3 kernel, or -1 where the phase has no tap.
+    Output o of the 7^3 / stride 2 / pad 3 stem reads x[2o + k - 3]; with
+    the input index written 2m + p (block m, phase p), k = 2t + p - 1 for
+    tap t = m - o + 2 in [0, 4)."""
+    idx = np.full((4, 4, 4, 8), -1, np.int64)
+    for td in range(4):
+        for th in range(4):
+            for tw in range(4):
+                for pd in range(2):
+                    for ph in range(2):
+                        for pw in range(2):
+                            kd, kh, kw = 2 * td + pd - 1, 2 * th + ph - 1, 2 * tw + pw - 1
+                            if all(0 <= k <= 6 for k in (kd, kh, kw)):
+                                idx[td, th, tw, (pd * 2 + ph) * 2 + pw] = (kd * 7 + kh) * 7 + kw
+    return idx
+
+
+STEM_S2D_IDX = _stem_s2d_index_map()
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_gather(device: torch.device) -> torch.Tensor:
+    """STEM_S2D_IDX flattened, a missing tap pointing at slot 343 (a zero
+    appended to the flat 7^3 kernel), on `device`; a normal tensor even
+    when first asked for under inference mode, so autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.where(STEM_S2D_IDX < 0, 343, STEM_S2D_IDX).reshape(-1),
+                               device=device)
+
+
+def stem_s2d_weight(w: torch.Tensor) -> torch.Tensor:
+    """(F, C, 7, 7, 7) stem kernel -> the space-to-depth stem's (F, 8C, 4,
+    4, 4) kernel, phase p of input channel c on channel p * C + c, zero
+    where a phase has no tap. A gather: the gradient flows into `w`."""
+    f, c = w.shape[:2]
+    flat = F.pad(w.reshape(f, c, 343), (0, 1))[:, :, _stem_gather(w.device)]
+    return flat.reshape(f, c, 4, 4, 4, 8).permute(0, 5, 1, 2, 3, 4).reshape(f, 8 * c, 4, 4, 4)
+
+
+def stem_s2d_pack(x: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) -> the space-to-depth stem's input: each odd extent
+    padded by one plane, the 2^3 phases of each block on the channel axis
+    (channel ((pd * 2 + ph) * 2 + pw) * C + c), and (2, 1) blocks of zeros
+    before and after each spatial axis (the 4^3 conv's padding), as an
+    NCDHW view (B, 8C, D // 2 + 3, ...) of a channels-last tensor."""
+    b, d, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 4, 2 + w % 2, 4, 2 + h % 2, 4, 2 + d % 2))
+    dp, hp, wp = (n // 2 for n in xp.shape[1:4])
+    xs = xp.reshape(b, dp, 2, hp, 2, wp, 2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return xs.reshape(b, dp, hp, wp, 8 * c).permute(0, 4, 1, 2, 3)
+
+
+class StemConv(nn.Conv3d):
+    """The stem's Conv3d(C, features, 7, stride 2, padding 3, no bias).
+    With `s2d` its forward computes that convolution by space-to-depth, as
+    the TPU package's StemConv does: the kernel gathered into (F, 8C, 4, 4,
+    4) (`stem_s2d_weight`, under autocast from the cast kernel), the input
+    packed (`stem_s2d_pack`, cast first under autocast) and a 4^3 stride-1
+    F.conv3d. Without it, the plain convolution. The parameter is
+    `weight` (F, C, 7, 7, 7) either way."""
+
+    def __init__(self, in_channels: int, features: int = 64, s2d: bool = True):
+        super().__init__(in_channels, features, 7, 2, 3, bias=False)
+        self.s2d = s2d
+
+    def forward(self, x):
+        if not self.s2d:
+            return super().forward(x)
+        w = self.weight
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            dt = torch.get_autocast_dtype(dev)
+            x, w = x.to(dt), w.to(dt)
+        return F.conv3d(stem_s2d_pack(x.permute(0, 2, 3, 4, 1)), stem_s2d_weight(w))
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while a rematerialized block recomputes its forward in the
+    backward (on that thread): a BatchNorm then normalizes by the batch's
+    statistics and leaves its running statistics as they are."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute():
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = False
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recompute()
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` with its activations recomputed in the backward (no RNG
+    replay: the blocks draw nothing)."""
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_remat_contexts)
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
           dilation: int = 1) -> nn.Conv3d:
     return nn.Conv3d(cin, cout, kernel, stride,
@@ -111,6 +237,9 @@ class _FlaxRunningVar:
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if recomputing():  # the stock call on throwaway copies of the statistics
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, 0.0, self.eps)
         # the stock op updates a copy; the result is a new buffer tensor, as
         # autograd keeps the updated one for the backward
         old = self.running_var
@@ -236,7 +365,8 @@ class ResNet3D(nn.Module):
                  in_channels: int = 1, shortcut_type: str = "B",
                  head: str = "classifier", dropout_rate: float = 0.5,
                  num_seg_classes: int = 1, compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, s2d_stem: bool = True,
+                 remat: bool = False):
         super().__init__()
         if depth not in DEPTH_BLOCKS:
             raise ValueError(f"unsupported depth {depth}")
@@ -250,10 +380,11 @@ class ResNet3D(nn.Module):
         self.shortcut_type = shortcut_type
         self.head = head
         self.compute_dtype = compute_dtype
+        self.remat = remat
 
         kind, layers = DEPTH_BLOCKS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv3d(in_channels, 64, 7, 2, 3, bias=False)
+        self.conv1 = StemConv(in_channels, 64, s2d=s2d_stem)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool3d(3, 2, 1)
         inplanes = 64
@@ -294,8 +425,13 @@ class ResNet3D(nn.Module):
         """NCDHW input -> layer4 feature map (NCDHW); with a list `taps`,
         each stage's output is appended to it."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+            if remat:
+                for block in stage:
+                    x = _remat_block(block, x)
+            else:
+                x = stage(x)
             if taps is not None:
                 taps.append(x)
         return x
@@ -364,12 +500,9 @@ def generate_model(model_type="resnet", model_depth=18, resnet_shortcut="B",
                    **_ignored):
     """Config-driven factory. Parameters are created in `param_dtype`
     (float32); `compute_dtype` selects the autocast type of the forward;
-    `generator` draws the initial weights. `s2d_stem` is accepted as the
-    TPU package's factory takes it, and either value gives the same model:
-    the port has one stem, a plain Conv3d computing the convolution that
-    the TPU package's space-to-depth and naive stems both compute, and it
-    shards spatially to any degree (parallel/spatial.py)."""
-    del s2d_stem
+    `generator` draws the initial weights; `s2d_stem` picks the stem's
+    form (`StemConv`), the parameters the same either way. Like the TPU
+    package's factory it takes no `remat`: that falls into `_ignored`."""
     if model_type != "resnet":
         raise ValueError(f"unsupported model_type {model_type!r}")
     if model_depth not in DEPTH_BLOCKS:
@@ -377,5 +510,6 @@ def generate_model(model_type="resnet", model_depth=18, resnet_shortcut="B",
     model = ResNet3D(depth=model_depth, num_classes=nb_class,
                      in_channels=in_channels, shortcut_type=resnet_shortcut,
                      head="classifier", dropout_rate=dropout_rate,
-                     compute_dtype=compute_dtype, generator=generator)
+                     compute_dtype=compute_dtype, generator=generator,
+                     s2d_stem=s2d_stem)
     return model.to(dtype=param_dtype)

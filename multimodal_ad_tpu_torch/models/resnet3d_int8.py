@@ -50,29 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import conv_i8, quantize, relayout_weight
-from .resnet3d import DEPTH_BLOCKS, STAGES
-
-
-def _stem_s2d_index_map() -> np.ndarray:
-    """Tap map of the space-to-depth stem: entry [td, th, tw, phase] is the
-    flat index into the 7^3 kernel, or -1 where the phase has no tap.
-    Output o of the 7^3 / stride 2 / pad 3 stem reads x[2o + k - 3]; with
-    the input index written 2m + p (block m, phase p), k = 2t + p - 1 for
-    tap t = m - o + 2 in [0, 4)."""
-    idx = np.full((4, 4, 4, 8), -1, np.int64)
-    for td in range(4):
-        for th in range(4):
-            for tw in range(4):
-                for pd in range(2):
-                    for ph in range(2):
-                        for pw in range(2):
-                            kd, kh, kw = 2 * td + pd - 1, 2 * th + ph - 1, 2 * tw + pw - 1
-                            if all(0 <= k <= 6 for k in (kd, kh, kw)):
-                                idx[td, th, tw, (pd * 2 + ph) * 2 + pw] = (kd * 7 + kh) * 7 + kw
-    return idx
-
-
-STEM_S2D_IDX = _stem_s2d_index_map()
+from .resnet3d import DEPTH_BLOCKS, STAGES, stem_s2d_pack, stem_s2d_weight
 
 
 def fold_bn(kernel, scale, bias, mean, var, eps=1e-5):
@@ -189,16 +167,10 @@ class ResNet3DInt8(nn.Module):
 
     def __init__(self, qp: dict, scales=None):
         super().__init__()
-        kernel = np.asarray(qp["stem"]["kernel"], np.float32)
-        c_in, feats = kernel.shape[3], kernel.shape[4]
-        self.in_channels = c_in
-        k = torch.from_numpy(np.ascontiguousarray(kernel)).to(torch.bfloat16)
-        k = k.reshape(343, c_in, feats)
-        idx = torch.from_numpy(STEM_S2D_IDX.reshape(-1))
-        w2 = torch.where((idx >= 0)[:, None, None], k[idx.clamp(min=0)],
-                         torch.zeros((), dtype=torch.bfloat16))
-        self.register_buffer("stem_w", w2.reshape(4, 4, 4, 8 * c_in, feats)
-                             .permute(4, 3, 0, 1, 2).contiguous())
+        kernel = torch.from_numpy(np.asarray(qp["stem"]["kernel"], np.float32))
+        self.in_channels = kernel.shape[3]
+        k = kernel.to(torch.bfloat16).permute(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
+        self.register_buffer("stem_w", stem_s2d_weight(k).contiguous())
         self.register_buffer("stem_g", torch.from_numpy(np.asarray(qp["stem"]["g"], np.float32)))
         self.register_buffer("stem_b", torch.from_numpy(np.asarray(qp["stem"]["b"], np.float32)))
         dense = qp["dense"]
@@ -268,14 +240,7 @@ class ResNet3DInt8(nn.Module):
         """(B, X, Y, Z, C) -> bf16 NDHWC: s2d 4^3 conv, affine, ReLU, max pool."""
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"input has {x.shape[-1]} channels, model takes {self.in_channels}")
-        x = x.to(torch.bfloat16)
-        b, d, h, w, c = x.shape
-        xp = F.pad(x, (0, 0, 0, w % 2, 0, h % 2, 0, d % 2))
-        dp, hp, wp = xp.shape[1:4]
-        xs = xp.reshape(b, dp // 2, 2, hp // 2, 2, wp // 2, 2, c)
-        xs = xs.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, dp // 2, hp // 2, wp // 2, 8 * c)
-        xs = F.pad(xs, (0, 0, 2, 1, 2, 1, 2, 1))
-        o = F.conv3d(xs.permute(0, 4, 1, 2, 3), self.stem_w).permute(0, 2, 3, 4, 1)
+        o = F.conv3d(stem_s2d_pack(x.to(torch.bfloat16)), self.stem_w).permute(0, 2, 3, 4, 1)
         o = torch.relu(o.float() * self.stem_g + self.stem_b).to(torch.bfloat16)
         o = F.max_pool3d(o.permute(0, 4, 1, 2, 3), 3, 2, 1)
         return o.permute(0, 2, 3, 4, 1).contiguous()

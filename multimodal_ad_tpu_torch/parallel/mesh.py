@@ -51,6 +51,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..models.resnet3d import recomputing
+
 #: mesh axes the batch shards over; a multislice mesh has both
 DATA_AXES = ("replica", "data")
 #: the mesh axis a volume's first spatial axis shards over
@@ -554,8 +556,9 @@ class GlobalBatchNormMixin:
     both grow S times). The running statistics take the global mean and
     biased variance, as flax's BatchNorm does (`FlaxBatchNorm3d`), with
     the stock momentum rule (1/count with ``momentum=None``), and so stay
-    equal on every rank. Eval mode is the stock module's. Set `mesh_group`
-    (`convert_sync_batchnorm` does)."""
+    equal on every rank; a rematerialized block's recomputation
+    (`recomputing`) leaves them as they are. Eval mode is the stock
+    module's. Set `mesh_group` (`convert_sync_batchnorm` does)."""
 
     mesh_group = None
 
@@ -575,6 +578,8 @@ class GlobalBatchNormMixin:
         y = d * torch.rsqrt(var + self.eps).view(view)
         if self.affine:
             y = y * self.weight.view(view) + self.bias.view(view)
+        if recomputing():  # a rematerialized block's second forward
+            return y.to(x.dtype)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             f = (1.0 / float(self.num_batches_tracked) if self.momentum is None

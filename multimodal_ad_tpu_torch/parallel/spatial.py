@@ -72,7 +72,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _triple
 
-from ..models.resnet3d import BasicBlock, Bottleneck, ResNet3D, ShortcutA
+from ..models.resnet3d import BasicBlock, Bottleneck, ResNet3D, ShortcutA, StemConv
 from . import mesh as pmesh
 
 
@@ -413,6 +413,14 @@ class SpatialBottleneck(Bottleneck):
         return _add(out, lay, residual, rlay), lay
 
 
+def _check_no_remat(model: ResNet3D) -> None:
+    if model.remat:
+        raise ValueError(
+            "remat=True cannot run on a 'space' axis: recomputing a block in the "
+            "backward would replay its halo all_reduces there, interleaved with "
+            "DDP's gradient buckets; build the ResNet with remat=False")
+
+
 class SpatialResNet3D(ResNet3D):
     """`ResNet3D` over a volume sharded along X on the space axis
     (`convert_spatial`). ``forward(x)`` takes this rank's slab (B, x_r, Y,
@@ -431,6 +439,7 @@ class SpatialResNet3D(ResNet3D):
         return total / float(lay.extent * h.shape[3] * h.shape[4])
 
     def forward(self, x, return_taps: bool = False):
+        _check_no_remat(self)
         if x.shape[-1] != self.in_channels:
             raise ValueError(
                 f"input has {x.shape[-1]} channels, model declares "
@@ -473,7 +482,9 @@ class SpatialResNet3D(ResNet3D):
         return out
 
 
-_SWAPS = {nn.Conv3d: SpatialConv3d, nn.MaxPool3d: SpatialMaxPool3d,
+#: the space-to-depth stem becomes the plain 7^3 / s2 / p3 halo convolution on
+#: the same weight, so a slab may have any X extent
+_SWAPS = {nn.Conv3d: SpatialConv3d, StemConv: SpatialConv3d, nn.MaxPool3d: SpatialMaxPool3d,
           nn.ConvTranspose3d: SpatialConvTranspose3d, ShortcutA: SpatialShortcutA,
           BasicBlock: SpatialBasicBlock, Bottleneck: SpatialBottleneck,
           ResNet3D: SpatialResNet3D}
@@ -487,6 +498,9 @@ def convert_spatial(model: nn.Module, mesh) -> nn.Module:
     ConvTranspose3d, the ResNet's blocks): they then take and return
     (slab, `Slabs`) pairs, and the caller passes the layouts along.
     Returns `model`."""
+    for m in model.modules():
+        if isinstance(m, ResNet3D):
+            _check_no_remat(m)
     axis = SpaceAxis.of(mesh)
     pmesh.convert_sync_batchnorm(model, mesh)
     for m in model.modules():

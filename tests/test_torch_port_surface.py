@@ -13,8 +13,9 @@ second.
   cites the README divergence that states it, which must be in README.md.
 - No stale entry: a mapped name still exists in the JAX module, and the
   port does not define it under the same name.
-- This slice's names (the tie-splitting max pool, the host augmentations,
-  `annotate`, the functional pools) are ported, never absent.
+- Slice 14's names (the tie-splitting max pool, the host augmentations,
+  `annotate`, the functional pools) and slice 16's (`StemConv`) are
+  ported, never absent.
 """
 
 import ast
@@ -61,7 +62,6 @@ ABSENT = {
     "ops/roi_pool.py::HAS_PALLAS": 25,
     "ops/fused_gather.py::flatten_corpus": 25,
     "tabular/icl.py::validated_from_bytes": 27,
-    "models/resnet3d.py::StemConv": 22,
     "models/resnet3d.py::ConvBN": 28,
     "models/resnet3d.py::SegHead": 28,
     "models/resnet3d.py::EXPANSION": 28,
@@ -82,6 +82,10 @@ SLICE_14 = [
     "models/resnet3d.py::avg_pool_3d",
     "models/resnet3d.py::global_avg_pool",
 ]
+
+
+# ported in slice 16: never absent
+SLICE_16 = ["models/resnet3d.py::StemConv"]
 
 
 def _modules(root: Path) -> list:
@@ -219,7 +223,7 @@ def test_moved_modules():
 
 
 def test_this_slice_is_ported():
-    for key in SLICE_14:
+    for key in SLICE_14 + SLICE_16:
         module, name = key.split("::")
         assert key not in ABSENT and key not in RENAMED, key
         assert name in public(JAX_PKG / module), f"{key} is not a JAX name"

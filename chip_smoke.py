@@ -244,6 +244,20 @@ Phases (any failure ends the run with a non-zero exit, nothing is caught):
    and buffers equal, then the bf16 step's time (median of 3 after 1) with
    its exchanges and halo MB a step; (c) the same on a ragged batch (5 real
    rows); (d) `entry.dryrun_multichip(4)` over four gloo ranks on the card;
+   the slab stem and remat (slice 17): (f) on (a)'s two ranks the fp32 and
+   bf16 forwards with the plain 7^3 halo stem beside (a)'s space-to-depth
+   stem on slabs, each against the one-process model of its form (1e-4 of
+   the logits' spread, 5e-3 in probability), and each form's stem (conv1 to
+   the max pool) and stem conv device time on each rank (torch.profiler,
+   ranges as in phase 22); (g) on (b)'s four ranks the fp32 step of a
+   ``remat=True`` model against a ``remat=False`` one from the same
+   weights, both on cuDNN's deterministic algorithms: the loss equal to
+   the bit, every BatchNorm statistic equal (``num_batches_tracked`` 1),
+   the clipped gradients within 1.5e-6 of max |g|, the ranks' parameters
+   equal, the one-process rule of (b), its exchanges the plain step's plus
+   the blocks' forward ones; (h) the bf16 step with and without `remat`:
+   ms (median of 3 after 1), exchanges and halo MB a step, each rank's
+   peak memory over a step;
 21. K4 (csrc/max_pool.cu), the backward of `ops/pool.py::max_pool_3d_fast`
    (each window's cotangent split equally among its tied maxima), which no
    model routes: driven through `max_pool_3d_fast(x).backward(g)` at the
@@ -2771,11 +2785,11 @@ def adam_rule(torch, a, b, lr0, u_bound=1e-5):
 W2_U_BOUND = 1e-3
 
 
-def _dp_fresh_state(torch, dev, sd, mesh, spatial=False):
-    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+def _dp_fresh_state(torch, dev, sd, mesh, spatial=False, remat=False):
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D
     from multimodal_ad_tpu_torch.train import loop
 
-    model = generate_model(model_depth=18, dropout_rate=0.0, compute_dtype=torch.float32)
+    model = ResNet3D(depth=18, dropout_rate=0.0, compute_dtype=torch.float32, remat=remat)
     model.load_state_dict(sd)
     return loop.create_train_state(model.to(dev), loop.make_epoch_schedule(1e-3, 20), mesh=mesh,
                                    spatial=spatial)
@@ -3198,24 +3212,31 @@ def _sp_forward_and_serving(torch, dev, a, rank):
     sh = pmesh.spatial_sharding(mesh)
     sd = torch.load(a["sd"], weights_only=False)
     x = torch.load(a["x_fwd"], weights_only=False).to(dev)
+    xs = sh.slab(x)
 
-    def model(head, dtype):
-        m = ResNet3D(depth=18, head=head, compute_dtype=dtype)
+    def model(head, dtype, s2d=True):
+        m = ResNet3D(depth=18, head=head, compute_dtype=dtype, s2d_stem=s2d)
         m.load_state_dict({k: v for k, v in sd.items()
                            if head == "classifier" or not k.startswith("conv_seg")})
         return m.to(dev).eval()
 
+    # the classifier by stem form and type, spatially sharded
+    sp = {(s2d, dt): convert_spatial(model("classifier", dt, s2d), mesh)
+          for s2d in (True, False) for dt in (torch.float32, torch.bfloat16)}
     with torch.no_grad():
         HaloExchange.exchanges = HaloExchange.bytes = 0
-        logits = convert_spatial(model("classifier", torch.float32), mesh)(sh.slab(x))
+        logits = sp[(True, torch.float32)](xs)
         torch.cuda.synchronize()
         res["fwd_exchanges"], res["fwd_halo_bytes"] = HaloExchange.exchanges, HaloExchange.bytes
-        slab, bounds = convert_spatial(model("none", torch.float32), mesh)(sh.slab(x))
+        slab, bounds = convert_spatial(model("none", torch.float32), mesh)(xs)
         res["none_slab"] = (tuple(slab.shape), bounds)
         feats = sh.gather(slab.contiguous())
-        probs = torch.softmax(convert_spatial(model("classifier", torch.bfloat16), mesh)(
-            sh.slab(x)), dim=-1)
+        probs = torch.softmax(sp[(True, torch.bfloat16)](xs), dim=-1)
         res["logits"], res["probs_bf16"] = logits.cpu(), probs.cpu()
+        # (f) the plain 7^3 halo stem on the same slabs
+        plain_logits = sp[(False, torch.float32)](xs)
+        plain_probs = torch.softmax(sp[(False, torch.bfloat16)](xs), dim=-1)
+        res["plain_logits"] = plain_logits.cpu()
         if rank == 0:
             ref = model("classifier", torch.float32)(x)
             ref_feats = model("none", torch.float32)(x)
@@ -3225,7 +3246,24 @@ def _sp_forward_and_serving(torch, dev, a, rank):
                                      / (ref_feats.max() - ref_feats.min()))
             res["probs_bf16_err"] = float((probs - ref_probs).abs().max())
             res["ref_logits"] = ref.cpu()
+            pref = model("classifier", torch.float32, s2d=False)(x)
+            pref_probs = torch.softmax(model("classifier", torch.bfloat16, s2d=False)(x), dim=-1)
+            res["plain_logits_err"] = float((plain_logits - pref).abs().max()
+                                            / (pref.max() - pref.min()))
+            res["plain_probs_bf16_err"] = float((plain_probs - pref_probs).abs().max())
+            res["s2d_vs_plain_logits"] = float((logits - plain_logits).abs().max()
+                                               / (pref.max() - pref.min()))
         del feats, slab
+    torch.cuda.empty_cache()
+    # (f) each form's stem (conv1 to the max pool) and stem conv on this
+    # rank's slab, device time under torch.profiler (2 forwards)
+    res["stem_ms"] = {}
+    with torch.no_grad():
+        for (s2d, dt), m in sp.items():
+            stem_ms, conv_ms, dev_ms = stem_ranges(torch, [m], lambda m=m: m(xs), n=2)
+            key = f"{'s2d' if s2d else 'plain'} {'bf16' if dt == torch.bfloat16 else 'fp32'}"
+            res["stem_ms"][key] = {"stem": stem_ms, "conv": conv_ms, "forward": dev_ms}
+    del sp
     torch.cuda.empty_cache()
 
     # (e) the predictor on {"data": 1, "space": 2}: the batch replicated over
@@ -3252,10 +3290,26 @@ def _sp_forward_and_serving(torch, dev, a, rank):
     return res
 
 
+def _block_exchange_marks(model, HaloExchange):
+    """Hooks noting HaloExchange's counts as a plain spatial forward enters
+    layer1 and leaves layer4: ``marks["blocks"]`` the blocks' forward
+    (exchanges, bytes) once both fired. Returns (marks, handles)."""
+    marks = {}
+
+    def note(name):
+        marks.setdefault(name, (HaloExchange.exchanges, HaloExchange.bytes))
+        if "in" in marks and "out" in marks:
+            marks["blocks"] = tuple(b - a for a, b in zip(marks["in"], marks["out"]))
+
+    return marks, [model.layer1.register_forward_pre_hook(lambda m, args: note("in")),
+                   model.layer4.register_forward_hook(lambda m, args, y: note("out"))]
+
+
 def _sp_train(torch, dev, a, rank):
-    """Phase 20 (b) and (c) on one of four ranks: {"data": 2, "space": 2}."""
+    """Phase 20 (b), (c), (g) and (h) on one of four ranks: {"data": 2,
+    "space": 2}."""
     from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
-    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
+    from multimodal_ad_tpu_torch.models.resnet3d import ResNet3D
     from multimodal_ad_tpu_torch.ops import fused_gather as fg
     from multimodal_ad_tpu_torch.parallel import mesh as pmesh
     from multimodal_ad_tpu_torch.parallel.spatial import HaloExchange
@@ -3269,19 +3323,23 @@ def _sp_train(torch, dev, a, rank):
     cw = torch.tensor([0.5, 0.5], device=dev)
     lr0 = loop.make_epoch_schedule(1e-3, 20)(0)
     ds = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32, mesh=mesh)
+
+    def step_result(state, loss):
+        return {"loss": float(loss), "exchanges": HaloExchange.exchanges,
+                "halo_bytes": HaloExchange.bytes,
+                "param_sums": [float(p.detach().double().sum()) for p in state.model.parameters()],
+                "buffer_sums": [float(b.double().sum()) for b in state.model.buffers()]}
+
     for name, idx in (("full", np.arange(BATCH)), ("ragged", np.arange(5))):
         fg.gather_normalize.launches = 0
         batch = next(iter(DeviceEpochIterator(ds, idx, BATCH, spatial=1)))  # K1, then the slab
         torch.cuda.synchronize()
-        r = {"k1": fg.gather_normalize.launches, "slab": tuple(batch["image"].shape),
-             "real": float(batch["mask"].sum())}
+        k1 = fg.gather_normalize.launches
         state = _dp_fresh_state(torch, dev, sd, mesh, spatial=True)
         HaloExchange.exchanges = HaloExchange.bytes = 0
-        loss, _ = loop.train_step(state, batch, cw)
-        r["loss"] = float(loss)
-        r["exchanges"], r["halo_bytes"] = HaloExchange.exchanges, HaloExchange.bytes
-        r["param_sums"] = [float(p.detach().double().sum()) for p in state.model.parameters()]
-        r["buffer_sums"] = [float(b.double().sum()) for b in state.model.buffers()]
+        r = step_result(state, loop.train_step(state, batch, cw)[0])
+        r.update(k1=k1, slab=tuple(batch["image"].shape), real=float(batch["mask"].sum()))
+        ref_state = None
         if rank == 0:  # the one-process step at the global batch
             ds1 = DeviceDataset(vols8, labels8, device=dev, store_dtype=np.float32)
             ref_state = _dp_fresh_state(torch, dev, sd, None)
@@ -3289,22 +3347,64 @@ def _sp_train(torch, dev, a, rank):
                 DeviceEpochIterator(ds1, idx, BATCH))), cw)
             r["ref_loss"] = float(ref_loss)
             r["check"] = adam_rule(torch, state, ref_state, lr0, W2_U_BOUND)
-            del ref_state, ds1
-        del state
+            del ds1
+        if name == "full":
+            # (g) the plain and the remat step from the same weights, both on
+            # cuDNN's deterministic algorithms (the max pool's backward still
+            # adds with atomics)
+            cudnn = torch.backends.cudnn
+            was = cudnn.deterministic
+            cudnn.deterministic = True
+            try:
+                pstate = _dp_fresh_state(torch, dev, sd, mesh, spatial=True)
+                marks, hooks = _block_exchange_marks(pstate.model, HaloExchange)
+                HaloExchange.exchanges = HaloExchange.bytes = 0
+                p = step_result(pstate, loop.train_step(pstate, batch, cw)[0])
+                for h in hooks:
+                    h.remove()
+                rstate = _dp_fresh_state(torch, dev, sd, mesh, spatial=True, remat=True)
+                HaloExchange.exchanges = HaloExchange.bytes = 0
+                g = step_result(rstate, loop.train_step(rstate, batch, cw)[0])
+            finally:
+                cudnn.deterministic = was
+            g["plain"] = {k: p[k] for k in ("loss", "exchanges", "halo_bytes")}
+            g["blocks_fwd"] = marks["blocks"]
+            pa, pb = dict(pstate.model.named_parameters()), dict(rstate.model.named_parameters())
+            g_max = max(float(p.grad.abs().max()) for p in pa.values())
+            g["grad_max_rel"] = max(float((pb[k].grad - p.grad).abs().max())
+                                    for k, p in pa.items()) / g_max
+            sa, sb = pstate.model.state_dict(), rstate.model.state_dict()
+            stats = [k for k in sa if ".running_" in k or "num_batches" in k]
+            g["stats_equal"] = all(torch.equal(sa[k], sb[k]) for k in stats)
+            g["tracked"] = sorted({int(sb[k]) for k in stats if "num_batches" in k})
+            if rank == 0:
+                g["check"] = adam_rule(torch, rstate, ref_state, lr0, W2_U_BOUND)
+            r["remat"] = g
+            del pstate, rstate
+        del state, ref_state
         torch.cuda.empty_cache()
-        if name == "full":  # the flagship's training precision, timed
-            model = generate_model(model_depth=18, compute_dtype=torch.bfloat16,
-                                   generator=torch.Generator().manual_seed(SEED + 20)).to(dev)
-            st = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20),
-                                         dropout_seed=SEED + 20, mesh=mesh, spatial=True)
-            loop.train_step(st, batch, cw)  # warm-up
-            torch.cuda.synchronize()
-            HaloExchange.exchanges = HaloExchange.bytes = 0
-            r["bf16_step_ms"] = _timed_steps(torch, st, batch, cw, n=3, warmup=0)
-            r["bf16_exchanges_per_step"] = HaloExchange.exchanges / 3
-            r["bf16_halo_mb_per_step"] = HaloExchange.bytes / 3 / 1e6
-            del st, model
-            torch.cuda.empty_cache()
+        if name == "full":  # (h) the flagship's training precision, timed, with and without remat
+            for remat in (False, True):
+                model = ResNet3D(depth=18, remat=remat,
+                                 generator=torch.Generator().manual_seed(SEED + 20)).to(dev)
+                st = loop.create_train_state(model, loop.make_epoch_schedule(1e-3, 20),
+                                             dropout_seed=SEED + 20, mesh=mesh, spatial=True)
+                loop.train_step(st, batch, cw)  # warm-up
+                torch.cuda.synchronize()
+                HaloExchange.exchanges = HaloExchange.bytes = 0
+                key = "bf16_remat" if remat else "bf16"
+                r[f"{key}_step_ms"] = _timed_steps(torch, st, batch, cw, n=3, warmup=0)
+                r[f"{key}_exchanges_per_step"] = HaloExchange.exchanges / 3
+                r[f"{key}_halo_mb_per_step"] = HaloExchange.bytes / 3 / 1e6
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                loop.train_step(st, batch, cw)
+                torch.cuda.synchronize()
+                r[f"{key}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                r[f"{key}_step_rise_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                del st, model
+                torch.cuda.empty_cache()
         res[name] = r
     return res
 
@@ -3387,6 +3487,24 @@ def spatial_phase(torch, dev, card, work, ctx):
     check(a0["logits_err"] <= SP_FWD_BOUND and a0["feats_err"] <= SP_FWD_BOUND
           and a0["probs_bf16_err"] <= SP_BF16_BOUND and same_logits,
           f"the spatial forward misses the unsharded one: {out['a']}")
+    same_plain = bool(torch.equal(r2[0]["plain_logits"], r2[1]["plain_logits"]))
+    out["f"] = {k: a0[k] for k in ("plain_logits_err", "plain_probs_bf16_err",
+                                   "s2d_vs_plain_logits")}
+    out["f"]["stem_ms"] = [r["stem_ms"] for r in r2]
+    log(f"(f) the stems on slabs, B = {SP_FWD_BATCH}: the plain 7^3 halo stem's fp32 logits "
+        f"{a0['plain_logits_err']:.3g} of their spread from the unsharded plain-stem forward "
+        f"(bound {SP_FWD_BOUND:g}), the same on both ranks {same_plain}, bf16 probabilities "
+        f"{a0['plain_probs_bf16_err']:.3g} (bound {SP_BF16_BOUND:g}); s2d vs plain on slabs "
+        f"{a0['s2d_vs_plain_logits']:.3g} of the spread")
+    for r, rr in enumerate(r2):
+        for key, t in rr["stem_ms"].items():
+            log(f"    rank {r} {key:10s} stem (conv1 to max pool) {t['stem']:.3f} ms, its conv "
+                f"{t['conv']:.3f} ms of {t['forward']:.3f} ms device time a forward "
+                f"(torch.profiler, 2 forwards)")
+    check(a0["plain_logits_err"] <= SP_FWD_BOUND and a0["plain_probs_bf16_err"] <= SP_BF16_BOUND
+          and same_plain, f"the plain stem on slabs misses the unsharded one: {out['f']}")
+    check(all(0 < t["conv"] <= t["stem"] for rr in r2 for t in rr["stem_ms"].values()),
+          f"the profile saw no stem on a rank: {out['f']['stem_ms']}")
     p = [r["predictor"] for r in r2]
     bit_equal = all(np.array_equal(p[0]["mesh"][k], p[0]["plain"][k]) for k in ("bf16", "int8"))
     # each space rank computes the replicated batch in its own process, where
@@ -3448,6 +3566,53 @@ def spatial_phase(torch, dev, card, work, ctx):
         f"{full0['bf16_exchanges_per_step']:.0f} exchanges and "
         f"{full0['bf16_halo_mb_per_step']:.1f} MB of halo a rank a step; the four-rank spawn "
         f"took {out['spawn4_s']:.1f} s on {card}")
+
+    # ---- (g), (h): remat on the 'space' axis --------------------------------
+    fulls = [r["full"] for r in r4]
+    gs = [f["remat"] for f in fulls]
+    c = gs[0]["check"]
+    g_ranks_equal = all(g["param_sums"] == gs[0]["param_sums"]
+                        and g["buffer_sums"] == gs[0]["buffer_sums"] for g in gs[1:])
+    out["g"] = {"loss": gs[0]["loss"], "plain_loss": gs[0]["plain"]["loss"],
+                "loss_equal": all(g["loss"] == g["plain"]["loss"] for g in gs),
+                "stats_equal": all(g["stats_equal"] for g in gs),
+                "tracked": sorted({t for g in gs for t in g["tracked"]}),
+                "grad_max_rel": max(g["grad_max_rel"] for g in gs), "ranks_equal": g_ranks_equal,
+                "check": c, "exchanges": [g["exchanges"] for g in gs],
+                "plain_exchanges": [g["plain"]["exchanges"] for g in gs],
+                "blocks_fwd": [g["blocks_fwd"] for g in gs],
+                "halo_mb": [g["halo_bytes"] / 1e6 for g in gs]}
+    replayed = all(g["exchanges"] == g["plain"]["exchanges"] + g["blocks_fwd"][0]
+                   and g["halo_bytes"] == g["plain"]["halo_bytes"] + g["blocks_fwd"][1]
+                   for g in gs)
+    log(f"(g) {{'data': 2, 'space': 2}} fp32 step with remat=True against remat=False from the "
+        f"same weights, both on cuDNN's deterministic algorithms: loss "
+        f"{gs[0]['loss']:.9g} vs {gs[0]['plain']['loss']:.9g} (equal to the bit on every rank "
+        f"{out['g']['loss_equal']}); BatchNorm statistics equal {out['g']['stats_equal']}, "
+        f"num_batches_tracked {out['g']['tracked']}; clipped gradients max |d| "
+        f"{out['g']['grad_max_rel']:.3g} of max |g| (bound 1.5e-6); the four ranks' parameters "
+        f"equal {g_ranks_equal}; against one process |du| {c['du_rel']:.3g} of |u| (bound "
+        f"{W2_U_BOUND:g}), parameters {c['big_max_over_lr']:.3g} lr / "
+        f"{c['loose_max_over_lr']:.3g} lr; exchanges by rank {out['g']['exchanges']} = plain "
+        f"{out['g']['plain_exchanges']} + the blocks' forward "
+        f"{[b[0] for b in out['g']['blocks_fwd']]} ({replayed}), "
+        f"{gs[0]['halo_bytes'] / 1e6:.1f} MB of halo on rank 0")
+    check(out["g"]["loss_equal"] and out["g"]["stats_equal"] and out["g"]["tracked"] == [1]
+          and out["g"]["grad_max_rel"] <= 1.5e-6 and g_ranks_equal and c["ok"] and replayed,
+          f"the remat step on a 'space' axis differs from the plain one: {out['g']}")
+    out["h"] = {}
+    for key in ("bf16", "bf16_remat"):
+        out["h"][key] = {"ms": full0[f"{key}_step_ms"],
+                         "exchanges": full0[f"{key}_exchanges_per_step"],
+                         "halo_mb": full0[f"{key}_halo_mb_per_step"],
+                         "peak_gb": [f[f"{key}_peak_gb"] for f in fulls],
+                         "step_rise_gb": [f[f"{key}_step_rise_gb"] for f in fulls]}
+        h = out["h"][key]
+        log(f"(h) bf16 2-D step{' with remat' if 'remat' in key else ''}: {h['ms']:.1f} ms "
+            f"(rank 0, median of 3 after 1), {h['exchanges']:.0f} exchanges and "
+            f"{h['halo_mb']:.1f} MB of halo a rank a step; peak memory over a step by rank "
+            f"{[round(v, 3) for v in h['peak_gb']]} GB (its rise in the step "
+            f"{[round(v, 3) for v in h['step_rise_gb']]} GB)")
 
     # ---- (d) the dry run over four gloo ranks on the card ------------------
     t0 = time.time()
@@ -3729,11 +3894,16 @@ def _time_attr(e, names):
 
 
 def stem_share(torch, pred, x, n=2):
+    """`stem_ranges` of `pred.forward(x)` over the predictor's folds."""
+    return stem_ranges(torch, pred.folds, lambda: pred.forward(x), n)
+
+
+def stem_ranges(torch, models, fn, n=2):
     """(stem device ms, stem conv device ms, all device ms) a call of
-    `pred.forward(x)`, from `n` calls under torch.profiler: each fold's
-    stem (conv1 to the max pool) runs inside a "stem" range and its conv1
-    inside a "stem conv" range (forward hooks); a range's device time is
-    the kernels launched inside it. The ranges' own device-side rows (their
+    `fn()`, from `n` calls under torch.profiler: each of `models`' stem
+    (conv1 to the max pool) runs inside a "stem" range and its conv1 inside
+    a "stem conv" range (forward hooks); a range's device time is the
+    kernels launched inside it. The ranges' own device-side rows (their
     spans on the card) are left out of the total."""
     ranges, handles = [], []
 
@@ -3744,7 +3914,7 @@ def stem_share(torch, pred, x, n=2):
     def leave(mod, args, y):
         ranges.pop().__exit__(None, None, None)
 
-    for m in pred.folds:
+    for m in models:
         handles.append(m.conv1.register_forward_pre_hook(enter))
         handles.append(m.conv1.register_forward_hook(leave))
         handles.append(m.maxpool.register_forward_hook(leave))
@@ -3752,7 +3922,7 @@ def stem_share(torch, pred, x, n=2):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                pred.forward(x)
+                fn()
             torch.cuda.synchronize()
     finally:
         for h in handles:

@@ -147,14 +147,17 @@ def stem_s2d_weight(w: torch.Tensor) -> torch.Tensor:
     return flat.reshape(f, c, 4, 4, 4, 8).permute(0, 5, 1, 2, 3, 4).reshape(f, 8 * c, 4, 4, 4)
 
 
-def stem_s2d_pack(x: torch.Tensor) -> torch.Tensor:
+def stem_s2d_pack(x: torch.Tensor, pad_depth: bool = True) -> torch.Tensor:
     """(B, D, H, W, C) -> the space-to-depth stem's input: each odd extent
     padded by one plane, the 2^3 phases of each block on the channel axis
     (channel ((pd * 2 + ph) * 2 + pw) * C + c), and (2, 1) blocks of zeros
     before and after each spatial axis (the 4^3 conv's padding), as an
-    NCDHW view (B, 8C, D // 2 + 3, ...) of a channels-last tensor."""
+    NCDHW view (B, 8C, D // 2 + 3, ...) of a channels-last tensor. Without
+    `pad_depth` D gets no blocks of zeros (a slab's window that already
+    holds its halo: (B, 8C, ceil(D / 2), ...))."""
     b, d, h, w, c = x.shape
-    xp = F.pad(x, (0, 0, 4, 2 + w % 2, 4, 2 + h % 2, 4, 2 + d % 2))
+    dpad = (4, 2 + d % 2) if pad_depth else (0, d % 2)
+    xp = F.pad(x, (0, 0, 4, 2 + w % 2, 4, 2 + h % 2, *dpad))
     dp, hp, wp = (n // 2 for n in xp.shape[1:4])
     xs = xp.reshape(b, dp, 2, hp, 2, wp, 2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
     return xs.reshape(b, dp, hp, wp, 8 * c).permute(0, 4, 1, 2, 3)
@@ -176,12 +179,17 @@ class StemConv(nn.Conv3d):
     def forward(self, x):
         if not self.s2d:
             return super().forward(x)
+        return self.s2d_conv(x)
+
+    def s2d_conv(self, x, pad_depth: bool = True):
+        """The space-to-depth convolution of NCDHW `x`; without `pad_depth`
+        no zero blocks along D (`stem_s2d_pack`): valid there."""
         w = self.weight
         dev = x.device.type
         if torch.is_autocast_enabled(dev):
             dt = torch.get_autocast_dtype(dev)
             x, w = x.to(dt), w.to(dt)
-        return F.conv3d(stem_s2d_pack(x.permute(0, 2, 3, 4, 1)), stem_s2d_weight(w))
+        return F.conv3d(stem_s2d_pack(x.permute(0, 2, 3, 4, 1), pad_depth), stem_s2d_weight(w))
 
 
 _RECOMPUTE = threading.local()

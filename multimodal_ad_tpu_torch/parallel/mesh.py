@@ -36,9 +36,11 @@ sharded (parallel/spatial.py), whose ranks of one data row each hold a
 slab of the row's volumes (`spatial_sharding`). The groups: `data_group`
 (the ranks that share this rank's space coordinate: batch sums and
 `gather_rows`), `space_group` (the ranks of this rank's data row: halo
-exchanges and the pooled sums) and `mesh_group` (every rank: the gradient
-sum, the global BatchNorm, `replicate`, `barrier`). Rank 0 of both axes
-writes the files (`is_main`).
+exchanges and the pooled sums), `mesh_group` (every rank: the global
+BatchNorm, `replicate`, `barrier`) and `grad_group` (every rank again, a
+communicator of its own: DDP's gradient sum, which then never interleaves
+with the BatchNorm sums a rematerialized block replays in the backward).
+Rank 0 of both axes writes the files (`is_main`).
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ AXES = DATA_AXES + (SPACE_AXIS,)
 # hold (a flattened multi-axis mesh, the data axes under a space axis), by
 # their ranks in order
 _FLAT_GROUPS: dict = {}
+# each mesh's gradient group (`grad_group`), by its ranks in order: a second
+# group over ranks that `_FLAT_GROUPS` or the DeviceMesh may already cover
+_GRAD_GROUPS: dict = {}
 
 
 def init_distributed(backend: str | None = None, device: str | torch.device = "cuda",
@@ -147,8 +152,11 @@ def _build(ranks: np.ndarray, names: tuple, device_type: str | None):
     _check_axes(names)
     mesh = DeviceMesh(_device_type(device_type), torch.from_numpy(ranks),
                       mesh_dim_names=names)
+    flat = tuple(int(r) for r in ranks.ravel())
+    if flat not in _GRAD_GROUPS:
+        _GRAD_GROUPS[flat] = dist.new_group(list(flat))
     if ranks.ndim > 1:
-        _flat_group(tuple(int(r) for r in ranks.ravel()))
+        _flat_group(flat)
         data_dims = [i for i, a in enumerate(names) if a in DATA_AXES]
         if SPACE_AXIS in names and len(data_dims) > 1:  # the data axes of each space column
             sp = names.index(SPACE_AXIS)
@@ -252,12 +260,27 @@ def mesh_size(mesh) -> int:
 
 
 def mesh_group(mesh):
-    """The process group over every rank of `mesh`: the gradient sum, the
-    global BatchNorm, `replicate` and `barrier` run over it."""
+    """The process group over every rank of `mesh`: the global BatchNorm,
+    `replicate` and `barrier` run over it (the gradient sum over
+    `grad_group`)."""
     _names(mesh)
     if mesh.ndim == 1:
         return mesh.get_group(0)
     return _group_of(tuple(_ranks(mesh)))
+
+
+def grad_group(mesh):
+    """The process group DDP sums the gradients over: every rank of `mesh`,
+    a communicator apart from `mesh_group`. A rank's gradient buckets fire
+    as its backward reaches them, and on a 'space' axis the ranks' backward
+    graphs differ (empty slabs), so a bucket may come before a replayed
+    BatchNorm sum on one rank and after it on another; on two communicators
+    each keeps its own order."""
+    ranks = tuple(_ranks(mesh))
+    if ranks not in _GRAD_GROUPS:
+        raise ValueError(f"the mesh over ranks {ranks} was not built by make_mesh or "
+                         "make_multislice_mesh, which make its gradient group")
+    return _GRAD_GROUPS[ranks]
 
 
 def data_group(mesh):

@@ -38,6 +38,19 @@ window and the layer's parameters by empty sums, so autograd reaches the
 exchange's backward and gives the parameters (zero) gradients, which DDP
 waits for.
 
+The stem. `StemConv` becomes `SpatialStemConv`: the plain 7^3 / s2 / p3
+halo plan, and with ``s2d`` its window convolved by space-to-depth, as the
+one-process stem; so a slab may have any X extent, odd or even.
+
+Rematerialization. With ``remat=True`` each residual block runs under
+`torch.utils.checkpoint` while training with gradients, as in one process;
+its recomputation in the backward replays the block's halo exchanges (the
+space group) and its global BatchNorm sums (the mesh group), in the block's
+own order on every rank (checkpoint's early stop is off). DDP averages the
+gradients over a group of its own (`parallel/mesh.py::grad_group`), so its
+buckets, whose readiness may fall at other points of the backward on
+different ranks, never share a communicator with the replayed sums.
+
 The heads. The global average pool is a local sum, a differentiable sum
 over the space group and a division by the whole volume's voxel count;
 dropout (its generator seeded by the data coordinate, train/loop.py) and
@@ -71,8 +84,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _triple
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
-from ..models.resnet3d import BasicBlock, Bottleneck, ResNet3D, ShortcutA, StemConv
+from ..models.resnet3d import (BasicBlock, Bottleneck, ResNet3D, ShortcutA, StemConv,
+                               _remat_block)
 from . import mesh as pmesh
 
 
@@ -298,9 +313,28 @@ class SpatialConv3d(_SpatialWindow, nn.Conv3d):
         if dst.size(self.space.index) == 0:
             shape = (x.shape[0], self.out_channels, 0, *self.yz_extents(x))
             return _tied_empty(shape, _compute_dtype(win), win, self.weight, self.bias), dst
-        y = F.conv3d(win, self.weight, self.bias, self.stride, (0, *self.padding[1:]),
-                     self.dilation, self.groups)
-        return y, dst
+        return self.conv_window(win), dst
+
+    def conv_window(self, win: torch.Tensor) -> torch.Tensor:
+        """The convolution of the exchanged window, valid along X."""
+        return F.conv3d(win, self.weight, self.bias, self.stride, (0, *self.padding[1:]),
+                        self.dilation, self.groups)
+
+
+class SpatialStemConv(SpatialConv3d, StemConv):
+    """`StemConv` (7^3 / s2 / p3) on a slab, by the plain halo plan. With
+    `s2d` the window's convolution is the space-to-depth one: the window of
+    output planes [o0, o1) starts at global plane 2 * o0 - 3, phase 1 of
+    block o0 - 2, so one zero plane before it (a phase the kernel has no tap
+    for) makes it n + 3 whole blocks (n = o1 - o0), packed without blocks of
+    zeros along X (`stem_s2d_pack`) and convolved by the 4^3 kernel, valid
+    along X: n output planes. A slab may have any X extent, odd or even.
+    Without `s2d`, the plain halo convolution on the same weight."""
+
+    def conv_window(self, win: torch.Tensor) -> torch.Tensor:
+        if not self.s2d:
+            return super().conv_window(win)
+        return self.s2d_conv(F.pad(win, (0, 0, 0, 0, 1, 0)), pad_depth=False)
 
 
 class SpatialMaxPool3d(_SpatialWindow, nn.MaxPool3d):
@@ -413,12 +447,15 @@ class SpatialBottleneck(Bottleneck):
         return _add(out, lay, residual, rlay), lay
 
 
-def _check_no_remat(model: ResNet3D) -> None:
-    if model.remat:
-        raise ValueError(
-            "remat=True cannot run on a 'space' axis: recomputing a block in the "
-            "backward would replay its halo all_reduces there, interleaved with "
-            "DDP's gradient buckets; build the ResNet with remat=False")
+def _remat_spatial_block(block: nn.Module, x: torch.Tensor, src: Slabs):
+    """`block((x, src))` rematerialized (`models/resnet3d.py::_remat_block`):
+    the recomputation in the backward replays the block's halo exchanges
+    and global BatchNorm sums. Checkpoint's early stop is off, so it replays
+    every one of them: a rank whose slab is empty saves other tensors than
+    its neighbours, and a recomputation cut short where the last of them is
+    rebuilt would skip collectives the others run."""
+    with set_checkpoint_early_stop(False):
+        return _remat_block(block, (x, src))
 
 
 class SpatialResNet3D(ResNet3D):
@@ -439,7 +476,6 @@ class SpatialResNet3D(ResNet3D):
         return total / float(lay.extent * h.shape[3] * h.shape[4])
 
     def forward(self, x, return_taps: bool = False):
-        _check_no_remat(self)
         if x.shape[-1] != self.in_channels:
             raise ValueError(
                 f"input has {x.shape[-1]} channels, model declares "
@@ -458,8 +494,13 @@ class SpatialResNet3D(ResNet3D):
             h, lay = self.conv1(x, src)
             h = F.relu(self.bn1(h))
             h, lay = self.maxpool(h, lay)
+            remat = self.remat and self.training and torch.is_grad_enabled()
             for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-                h, lay = stage((h, lay))
+                if remat:
+                    for block in stage:
+                        h, lay = _remat_spatial_block(block, h, lay)
+                else:
+                    h, lay = stage((h, lay))
                 taps.append(h)
             bounds = lay.ranges[ax.index]
             if self.head == "none":
@@ -482,9 +523,7 @@ class SpatialResNet3D(ResNet3D):
         return out
 
 
-#: the space-to-depth stem becomes the plain 7^3 / s2 / p3 halo convolution on
-#: the same weight, so a slab may have any X extent
-_SWAPS = {nn.Conv3d: SpatialConv3d, StemConv: SpatialConv3d, nn.MaxPool3d: SpatialMaxPool3d,
+_SWAPS = {nn.Conv3d: SpatialConv3d, StemConv: SpatialStemConv, nn.MaxPool3d: SpatialMaxPool3d,
           nn.ConvTranspose3d: SpatialConvTranspose3d, ShortcutA: SpatialShortcutA,
           BasicBlock: SpatialBasicBlock, Bottleneck: SpatialBottleneck,
           ResNet3D: SpatialResNet3D}
@@ -498,9 +537,6 @@ def convert_spatial(model: nn.Module, mesh) -> nn.Module:
     ConvTranspose3d, the ResNet's blocks): they then take and return
     (slab, `Slabs`) pairs, and the caller passes the layouts along.
     Returns `model`."""
-    for m in model.modules():
-        if isinstance(m, ResNet3D):
-            _check_no_remat(m)
     axis = SpaceAxis.of(mesh)
     pmesh.convert_sync_batchnorm(model, mesh)
     for m in model.modules():

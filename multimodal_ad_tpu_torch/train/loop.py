@@ -28,9 +28,10 @@ holds its data row's rows of the global batch: all of each volume, or with
 ResNet then sharded over that axis (parallel/spatial.py). The model's
 BatchNorms take their statistics over every rank of the mesh
 (`convert_sync_batchnorm`), the forward and backward run on a
-DistributedDataParallel wrapper over the whole mesh (``broadcast_buffers=
-False``: the global statistics keep the ranks' running buffers equal),
-which averages the gradients over all D x S ranks inside the backward;
+DistributedDataParallel wrapper over the whole mesh, on a process group
+of its own (`grad_group`; ``broadcast_buffers=False``: the global
+statistics keep the ranks' running buffers equal), which averages the
+gradients over all D x S ranks inside the backward;
 clipping and the update follow on the averaged gradients, the same on
 every rank. The losses divide by the global weight (or mask) sum: each
 rank's share is its data row's Σ w·nll / global Σ w, scaled by D, the
@@ -176,7 +177,8 @@ def create_train_state(model: nn.Module, schedule, weight_decay: float = 1e-4,
     BatchNorms turn global and the model is wrapped for DDP over the whole
     mesh, whose construction broadcasts the mesh's first rank's parameters
     and buffers to the others; with `spatial` too, the ResNet is sharded
-    over the mesh's 'space' axis (`convert_spatial`) and takes slabs."""
+    over the mesh's 'space' axis (`convert_spatial`) and takes slabs, its
+    stem and `remat` as in one process."""
     device = next(model.parameters()).device
     ddp = None
     rank = 0
@@ -190,7 +192,7 @@ def create_train_state(model: nn.Module, schedule, weight_decay: float = 1e-4,
             pmesh.convert_sync_batchnorm(model, mesh)
         ddp = nn.parallel.DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
-            process_group=pmesh.mesh_group(mesh), broadcast_buffers=False)
+            process_group=pmesh.grad_group(mesh), broadcast_buffers=False)
     gen = None
     if dropout_seed is not None:
         seed = int(dropout_seed) + DROPOUT_RANK_STRIDE * rank

@@ -17,9 +17,8 @@
   advanced once, in one process (float32 and bf16, a basic and a
   bottleneck depth) and under DDP over gloo at W = 1 and 2 (the global
   BatchNorm at 2);
-- a 'space' axis refuses ``remat=True`` (`convert_spatial`, the spatial
-  model's forward, `create_train_state(spatial=True)`), and turns the
-  stem into the plain halo convolution.
+- the stem on slabs and ``remat`` on a 'space' axis are in
+  test_torch_port_spatial_remat.py.
 """
 
 import jax
@@ -36,7 +35,6 @@ from multimodal_ad_tpu_torch.models.resnet3d import (STEM_S2D_IDX, ResNet3D, Ste
                                                      generate_model, image_encoder,
                                                      stem_s2d_pack, stem_s2d_weight)
 from multimodal_ad_tpu_torch.parallel import mesh as pmesh
-from multimodal_ad_tpu_torch.parallel import spatial as psp
 from multimodal_ad_tpu_torch.train import checkpoint as ckpt
 from multimodal_ad_tpu_torch.train import loop as tloop
 from multimodal_ad_tpu_torch.utils.torch_weights import state_dict_from_flax
@@ -301,28 +299,6 @@ def _remat_steps(sd, batch):
             "remat": _step(_model(10, torch.float32, True, sd), batch, mesh)}
 
 
-def _space_axis_refuses_remat(sd):
-    mesh = pmesh.make_mesh({"space": 2})
-    out = {}
-    try:
-        psp.convert_spatial(_model(10, torch.float32, True, sd), mesh)
-    except ValueError as e:
-        out["convert"] = str(e)
-    m = psp.convert_spatial(_model(10, torch.float32, False, sd), mesh)
-    out["stem_class"] = type(m.conv1).__name__
-    m.remat = True
-    try:
-        m(pmesh.spatial_sharding(mesh).slab(_batch(72, 2)["image"]))
-    except ValueError as e:
-        out["forward"] = str(e)
-    try:
-        tloop.create_train_state(_model(10, torch.float32, True, sd),
-                                 tloop.make_epoch_schedule(LR, 20), mesh=mesh, spatial=True)
-    except ValueError as e:
-        out["train_state"] = str(e)
-    return out
-
-
 @pytest.mark.parametrize("world", [1, 2])
 def test_remat_step_under_ddp(tmp_path, world):
     """Under DDP over gloo, at one rank (the stock BatchNorm) and at two
@@ -336,11 +312,3 @@ def test_remat_step_under_ddp(tmp_path, world):
         assert int(out["remat"]["sd"]["layer2.0.bn2.num_batches_tracked"]) == 1
     for k, v in res[0]["remat"]["sd"].items():
         assert torch.equal(res[-1]["remat"]["sd"][k], v), k
-
-
-def test_space_axis_refuses_remat(tmp_path):
-    sd = _model(10, torch.float32, False).state_dict()
-    for out in run_ranks(_space_axis_refuses_remat, 2, tmp_path, sd):
-        for where in ("convert", "forward", "train_state"):
-            assert "remat=True cannot run on a 'space' axis" in out[where], where
-        assert out["stem_class"] == "SpatialConv3d"

@@ -56,14 +56,19 @@ def cap_torch_threads() -> int:
 
 
 @contextlib.contextmanager
-def default_threads():
-    """torch's default intra-op thread count inside the block."""
+def torch_threads(n: int):
+    """`n` intra-op threads inside the block."""
     before = torch.get_num_threads()
-    torch.set_num_threads(DEFAULT_THREADS)
+    torch.set_num_threads(n)
     try:
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def default_threads():
+    """torch's default intra-op thread count inside the block."""
+    return torch_threads(DEFAULT_THREADS)
 
 
 @pytest.fixture
@@ -87,16 +92,19 @@ def _rank_main(rank, world, store, module, name, args, out_dir, threads):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 240.0) -> list:
+def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 240.0,
+              threads: int | None = None) -> list:
     """[fn(*args) of rank 0, ..., of rank world - 1], each rank a spawned
     process in one gloo group over a file:// store under `tmp_path`. `fn` is
     a module-level function; a rank that fails, or a run longer than
-    `timeout` seconds, raises (every rank is stopped)."""
+    `timeout` seconds, raises (every rank is stopped). Each rank runs
+    `threads` intra-op threads, by default its share of this worker's."""
     import torch.multiprocessing as mp
 
     out = tmp_path / f"ranks-{fn.__name__}-{time.monotonic_ns()}"
     out.mkdir()
-    threads = max(1, thread_cap() // world)
+    if threads is None:
+        threads = max(1, thread_cap() // world)
     ctx = mp.start_processes(
         _rank_main, args=(world, str(out / "store"), fn.__module__, fn.__name__, args,
                           str(out), threads),

@@ -24,7 +24,15 @@ the TPU package's serve.py).
   `predict_proba` returns the whole result everywhere. The batch size must
   divide by the mesh's data axes (a 'space' axis replicates the rows over
   its ranks). Calibration (`quantize_int8`) runs the whole
-  calibration set on every rank, so the scales are the single process's.
+  calibration set on every rank, so the scales are the single process's,
+- while a `torch.profiler` session records, `predict_proba` keeps spans
+  and counters (utils/profiling.py): `predict.request` around the call,
+  per chunk `predict.upload` (the blocking pageable copy),
+  `predict.normalize` (K1's launch), `predict.fold` per fold (its forward's
+  launches) and `predict.fetch` (the wait for the device and the copy
+  back), and the rows this process forwards, `predict.rows_real` and
+  `predict.rows_padded`. The spans are host time: a launch's span is its
+  enqueue, not the device's work.
 
 Usage:
     pred = EnsemblePredictor.from_checkpoint_dir("checkpoints/")
@@ -49,6 +57,7 @@ from .ops.normalize import NORMALIZERS
 from .parallel import mesh as pmesh
 from .train import checkpoint as ckpt
 from .train.metrics import _macro_ovr_auc, binary_auc
+from .utils.profiling import annotate, count
 
 
 def labels_from_proba(proba: np.ndarray) -> np.ndarray:
@@ -169,8 +178,9 @@ class EnsemblePredictor:
         int8 folds after `quantize_int8`."""
         acc = None
         for m in self.int8_folds or self.folds:
-            p = torch.softmax(m(x).float(), dim=-1)
-            acc = p if acc is None else acc + p
+            with annotate("predict.fold"):
+                p = torch.softmax(m(x).float(), dim=-1)
+                acc = p if acc is None else acc + p
         return acc / self.n_folds
 
     def _prep(self, chunk: torch.Tensor, preprocess: bool,
@@ -199,20 +209,28 @@ class EnsemblePredictor:
     def predict_proba(self, volumes, preprocess: bool = True) -> np.ndarray:
         """(n, X, Y, Z) or (n, X, Y, Z, C) host volumes -> (n, classes)
         fold-mean probabilities (on every rank under a mesh)."""
-        vols = np.asarray(volumes, np.float32)
-        bs = self.batch_size
-        out = []
-        for i in range(0, vols.shape[0], bs):
-            real = min(bs, vols.shape[0] - i)
-            if self.mesh is None:
-                chunk = vols[i:i + real]
-            else:  # upload only this rank's rows, the pad repeating the last
-                chunk = vols[i + np.minimum(np.arange(bs)[self.rows], real - 1)]
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            probs = self.forward(self._prep(chunk, preprocess,
-                                            self.rows.stop - self.rows.start))
-            out.append(pmesh.gather_rows(probs, self.mesh)[:real].cpu().numpy())
-        return np.concatenate(out, axis=0)
+        with annotate("predict.request"):
+            vols = np.asarray(volumes, np.float32)
+            bs = self.batch_size
+            own = self.rows.stop - self.rows.start
+            out = []
+            for i in range(0, vols.shape[0], bs):
+                real = min(bs, vols.shape[0] - i)
+                if self.mesh is None:
+                    chunk = vols[i:i + real]
+                else:  # upload only this rank's rows, the pad repeating the last
+                    chunk = vols[i + np.minimum(np.arange(bs)[self.rows], real - 1)]
+                with annotate("predict.upload"):
+                    chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+                with annotate("predict.normalize"):
+                    x = self._prep(chunk, preprocess, own)
+                probs = self.forward(x)
+                with annotate("predict.fetch"):
+                    out.append(pmesh.gather_rows(probs, self.mesh)[:real].cpu().numpy())
+                own_real = min(max(real - self.rows.start, 0), own)
+                count("predict.rows_real", own_real)
+                count("predict.rows_padded", own - own_real)
+            return np.concatenate(out, axis=0)
 
     def predict(self, volumes, preprocess: bool = True) -> np.ndarray:
         """Argmax labels; binary uses the reference's prob > 0.5 rule."""

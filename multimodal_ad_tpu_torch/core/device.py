@@ -9,8 +9,8 @@ Precision: a float32 convolution goes through cuDNN in TF32 unless
 decimal digits. The fp32 path must be fp32, so both TF32 switches are set
 off explicitly. The bf16 path (autocast, models/resnet3d.py) is not
 affected by them. ``cudnn.benchmark`` picks the fastest algorithm per
-convolution shape; serving pads every chunk to one static batch, so each
-shape is tuned once.
+convolution shape; how serving's batch buckets are tuned is set out in
+serve.py (`EnsemblePredictor._warm_buckets`).
 """
 
 from __future__ import annotations

@@ -4,9 +4,15 @@ the TPU package's serve.py).
 - every fold is its own eval-mode ResNet3D on the device; folds run in a
   Python loop and their softmax probabilities are averaged in float32 on
   the device; only the final (n, classes) array crosses back to the host,
-- each request is cut into chunks of the static batch size, and a ragged
-  last chunk is padded by repeating its last volume (padded rows are
-  dropped), so every forward sees one shape and cuDNN tunes it once,
+- each request is cut into chunks of the batch size, and each chunk is
+  forwarded at the smallest bucket that holds its rows: a power of two
+  below the batch size, or the batch size itself ({1, 2, 4, 8} at 8).
+  Rows up to the bucket repeat the chunk's last volume and are dropped
+  after the forward. The first request of a volume shape through the
+  current folds (bf16, or int8 after `quantize_int8`) also forwards every
+  bucket once through one fold, so cuDNN has chosen each bucket's
+  algorithms before later requests need them: its heuristics below the
+  batch size, its autotune at the batch size (`_warm_buckets`),
 - preprocessing runs on the device: each chunk is uploaded raw and K1
   (ops/fused_gather.py) gathers the padded batch and min-max normalizes it
   in one pass. Multi-channel volumes normalize per channel, as the host
@@ -18,21 +24,23 @@ the TPU package's serve.py).
   same preprocessing and then served by its `ResNet3DInt8`, whose block
   convolutions run K3 (ops/int8_conv.py) on the card,
 - under a mesh (parallel/mesh.py) every rank holds the folds and runs its
-  contiguous rows of each padded chunk: it uploads only them, K1
-  normalizes them and the bf16 or int8 folds forward them; the rows'
-  probabilities are assembled on every rank (`gather_rows`), so
-  `predict_proba` returns the whole result everywhere. The batch size must
-  divide by the mesh's data axes (a 'space' axis replicates the rows over
-  its ranks). Calibration (`quantize_int8`) runs the whole
-  calibration set on every rank, so the scales are the single process's,
+  contiguous rows of each chunk padded to the whole batch size: it
+  uploads only them, K1 normalizes them and the bf16 or int8 folds
+  forward them; the rows' probabilities are assembled on every rank
+  (`gather_rows`), so `predict_proba` returns the whole result everywhere.
+  The batch size must divide by the mesh's data axes (a 'space' axis
+  replicates the rows over its ranks). Calibration (`quantize_int8`) runs
+  the whole calibration set on every rank, so the scales are the single
+  process's,
 - while a `torch.profiler` session records, `predict_proba` keeps spans
   and counters (utils/profiling.py): `predict.request` around the call,
   per chunk `predict.upload` (the blocking pageable copy),
   `predict.normalize` (K1's launch), `predict.fold` per fold (its forward's
   launches) and `predict.fetch` (the wait for the device and the copy
   back), and the rows this process forwards, `predict.rows_real` and
-  `predict.rows_padded`. The spans are host time: a launch's span is its
-  enqueue, not the device's work.
+  `predict.rows_padded` (rows up to the bucket; under a mesh, up to this
+  rank's share of the batch). The spans are host time: a launch's span is
+  its enqueue, not the device's work.
 
 Usage:
     pred = EnsemblePredictor.from_checkpoint_dir("checkpoints/")
@@ -67,6 +75,17 @@ def labels_from_proba(proba: np.ndarray) -> np.ndarray:
     return np.argmax(proba, axis=1).astype(np.int32)
 
 
+def bucket_sizes(batch_size: int) -> list[int]:
+    """The batches a chunk is forwarded at: the powers of two below
+    `batch_size`, then `batch_size`."""
+    return [1 << k for k in range((batch_size - 1).bit_length())] + [batch_size]
+
+
+def bucket(real: int, batch_size: int) -> int:
+    """The smallest of `bucket_sizes(batch_size)` that holds `real` rows."""
+    return min(batch_size, 1 << (real - 1).bit_length())
+
+
 class EnsemblePredictor:
     """Fold-ensemble classifier over 3D volumes on one device.
 
@@ -96,6 +115,7 @@ class EnsemblePredictor:
             m.load_state_dict(sd)
             self.folds.append(m.eval().requires_grad_(False).to(self.device))
         self.int8_folds = None  # set by quantize_int8
+        self.warmed = set()  # (id of the fold list, volume shape) whose buckets have run
 
     # ---- construction -------------------------------------------------
 
@@ -183,6 +203,39 @@ class EnsemblePredictor:
                 acc = p if acc is None else acc + p
         return acc / self.n_folds
 
+    @torch.inference_mode()
+    def _warm_buckets(self, x: torch.Tensor, used: int) -> None:
+        """On the first chunk of a volume shape through the current folds
+        (the bf16 ones, or the int8 ones after `quantize_int8`), forward its
+        normalized batch `x` at every bucket through one fold and drop the
+        result, so later chunks find each bucket's convolution algorithms
+        chosen. The buckets below the batch size take cuDNN's heuristic
+        choice: there the five folds' enqueue paces a chunk more than the
+        device does, and autotuning would add ~0.7 s of set-up a bucket
+        (bf16 ResNet-18 at 91x109x91 on an H100). The whole batch is
+        autotuned, here unless this chunk (`used` rows) fills it.
+
+        This rests on PyTorch's cuDNN plan cache, which is not a documented
+        guarantee: it is keyed by the convolution's shape, dtype and layout,
+        not by the weights (so one fold warms all five) nor by
+        `cudnn.benchmark` (so a plan the heuristics chose here is reused
+        once autotune is back on, and the bucket is never autotuned)."""
+        folds = self.int8_folds or self.folds
+        key = (id(folds), x.shape[1:])
+        if key in self.warmed:
+            return
+        self.warmed.add(key)
+        fold = folds[0]
+        cudnn = torch.backends.cudnn
+        tune, cudnn.benchmark = cudnn.benchmark, False
+        try:
+            for b in bucket_sizes(self.batch_size)[:-1]:
+                fold(x[:b])
+        finally:
+            cudnn.benchmark = tune
+        if used != self.batch_size:
+            fold(x)
+
     def _prep(self, chunk: torch.Tensor, preprocess: bool,
               size: int | None = None) -> torch.Tensor:
         """Device chunk (real, X, Y, Z[, C]) float32 -> padded, normalized
@@ -224,12 +277,17 @@ class EnsemblePredictor:
                     chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
                 with annotate("predict.normalize"):
                     x = self._prep(chunk, preprocess, own)
+                if self.mesh is None:  # forward a prefix of K1's batch: no copy
+                    own_real, rows = real, bucket(real, bs)
+                    self._warm_buckets(x, rows)
+                    x = x[:rows]
+                else:  # every rank forwards its whole share of the batch
+                    own_real, rows = min(max(real - self.rows.start, 0), own), own
                 probs = self.forward(x)
                 with annotate("predict.fetch"):
                     out.append(pmesh.gather_rows(probs, self.mesh)[:real].cpu().numpy())
-                own_real = min(max(real - self.rows.start, 0), own)
                 count("predict.rows_real", own_real)
-                count("predict.rows_padded", own - own_real)
+                count("predict.rows_padded", rows - own_real)
             return np.concatenate(out, axis=0)
 
     def predict(self, volumes, preprocess: bool = True) -> np.ndarray:

@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from multimodal_ad_tpu_torch.models.resnet3d import generate_model
 from multimodal_ad_tpu_torch.parallel import mesh as pmesh
-from multimodal_ad_tpu_torch.serve import EnsemblePredictor
+from multimodal_ad_tpu_torch.serve import EnsemblePredictor, bucket
 from multimodal_ad_tpu_torch.utils import profiling
 from test_torch_port_support import cap_torch_threads, run_ranks
 
@@ -164,7 +164,7 @@ def test_the_harness_reads_the_four_metrics_from_a_traced_window(fresh_totals):
     assert set(READERS) <= set(names)
     got = {name: _reader(name)(ctx) for name in READERS}
     chunks = [min(s.bs, n - i) for _, n, _, _ in s.served[a:b] for i in range(0, n, s.bs)]
-    real, padded = sum(chunks), s.bs * len(chunks) - sum(chunks)
+    real, padded = sum(chunks), sum(bucket(c, s.bs) - c for c in chunks)
     assert got["predict_pad_share"] == 100.0 * padded / (real + padded)
     host = [got[n] for n in READERS[:3]]
     assert all(0 <= v <= 100 for v in host) and sum(host) <= 100, got

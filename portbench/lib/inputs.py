@@ -1,13 +1,12 @@
 """What the benchmark makes from `--seed` and hands to both the program and
-the reference: seeded sub-streams, brain-like volumes and ResNet weights,
-all drawn on the run's device in a few large calls."""
+the reference: seeded sub-streams and brain-like volumes, drawn on the
+run's device in a few large calls (each model family draws its weights
+from `generator`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from portbench.reference import resnet3d as ref
 
 VOLUME_CHUNK = 16  # volumes drawn per noise call (fixed: the draws depend on it)
 
@@ -58,68 +57,3 @@ def brain_volumes(n: int, shape, seed: int, device, dtype=torch.float32,
         vol = vol.clamp(0, 32767).round()
         out[s:e] = vol.to(dtype).cpu().numpy()
     return out
-
-
-def init_weights(depth: int, in_channels: int, num_classes: int, seed: int,
-                 device) -> dict:
-    """A fold's initial float32 state dict (MedicalNet names): convolutions
-    Kaiming-normal by fan-out, as the program and MedicalNet initialise
-    them, from one normal draw; BatchNorm scale 1, shift 0, running mean 0,
-    variance 1; the Linear uniform in +-1/sqrt(fan_in), from one uniform
-    draw."""
-    dev = torch.device(device)
-    g = generator(seed, dev)
-    shapes = ref.param_shapes(depth, in_channels, num_classes)
-    convs = [(k, s) for k, s in shapes.items() if len(s) == 5]
-    sizes = [int(np.prod(s)) for _, s in convs]
-    std = torch.tensor([(2.0 / (s[0] * s[2] * s[3] * s[4])) ** 0.5 for _, s in convs],
-                       device=dev)
-    flat = torch.randn(sum(sizes), generator=g, device=dev) * torch.repeat_interleave(
-        std, torch.tensor(sizes, device=dev))
-    sd = {}
-    for (k, s), part in zip(convs, torch.split(flat, sizes)):
-        sd[k] = part.view(s)
-    fc_w, fc_b = shapes["conv_seg.3.weight"], shapes["conv_seg.3.bias"]
-    bound = fc_w[1] ** -0.5
-    u = (torch.rand(int(np.prod(fc_w)) + fc_b[0], generator=g, device=dev) * 2 - 1) * bound
-    sd["conv_seg.3.weight"] = u[:int(np.prod(fc_w))].view(fc_w)
-    sd["conv_seg.3.bias"] = u[int(np.prod(fc_w)):]
-    for k, s in shapes.items():
-        if k in sd:
-            continue
-        if k.endswith("num_batches_tracked"):
-            sd[k] = torch.zeros((), dtype=torch.long, device=dev)
-        elif k.endswith(("weight", "running_var")):
-            sd[k] = torch.ones(s, device=dev)
-        else:
-            sd[k] = torch.zeros(s, device=dev)
-    return sd
-
-
-def trained_affine(sd: dict, seed: int, device) -> dict:
-    """Serving weights stand for trained folds, whose BatchNorm scales and
-    shifts spread over channels (where int8's per-tensor activation scales
-    lose the small channels' precision): every BatchNorm's scale drawn
-    log-normal (sigma 1) and its shift normal (0.25), in one draw."""
-    keys = [k[:-len(".running_var")] for k in sd if k.endswith(".running_var")]
-    sizes = [sd[f"{k}.weight"].numel() for k in keys]
-    z = torch.randn(2 * sum(sizes), generator=generator(seed, device), device=torch.device(device))
-    scale, shift = torch.split(z, sum(sizes))
-    for k, a, b in zip(keys, torch.split(scale, sizes), torch.split(shift, sizes)):
-        sd[f"{k}.weight"] = torch.exp(a)
-        sd[f"{k}.bias"] = 0.25 * b
-    return sd
-
-
-@torch.no_grad()
-def calibrate_batchnorm(sd: dict, x: torch.Tensor, depth: int) -> dict:
-    """Serving weights: the running statistics of every BatchNorm set to the
-    batch statistics of a reference forward over `x` (normalized NCDHW
-    volumes), so the eval-mode network sees normalized activations, as a
-    trained one does."""
-    stats = {}
-    ref.forward(sd, x, depth, train=True, stats=stats)
-    for prefix, (mean, var) in stats.items():
-        sd[f"{prefix}.running_mean"] = mean.clone()
-        sd[f"{prefix}.running_var"] = var.clone()
-    return sd

@@ -4,10 +4,12 @@ fixed rate above what it sustains, and its check against the plain
 reference.
 
 Set-up makes the request pool and the fold weights from the seed (the
-weights' BatchNorm statistics calibrated by the reference on a few pool
-volumes, so the eval-mode network sees normalized activations, as a trained
-one does), builds the predictor, quantizes it for int8 mixes, and serves
-every shape of the window once. The window offers the seeded requests at
+configuration's model family's serving weights: the ResNet's BatchNorm
+statistics are calibrated by the reference on a few pool volumes, so the
+eval-mode network sees normalized activations, as a trained one does),
+builds the predictor, quantizes it for int8 mixes, and serves every shape
+of the window once. A mix whose precision the family does not serve is
+refused before set-up. The window offers the seeded requests at
 the mix's fixed rate, served by one caller in order; above the knee a
 backlog waits from the first requests on, so the window measures the
 volumes answered a second. After it a seeded sample of the requests that
@@ -21,23 +23,21 @@ from __future__ import annotations
 
 import gc
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
-from portbench.lib import check, inputs, traffic
+from portbench.lib import check, family, inputs, traffic
 from portbench.lib.trace import REQUEST_SPAN
 from portbench.reference import data as ref_data
-from portbench.reference import int8 as ref_int8
-from portbench.reference import resnet3d as ref
 
 LATE_SAMPLE = 16  # requests due in the window but not started, answered after it for the check
 
 
 def _program():
-    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
     from multimodal_ad_tpu_torch.serve import EnsemblePredictor
-    return generate_model, EnsemblePredictor
+    return EnsemblePredictor
 
 
 def _ncdhw(vols: np.ndarray, device) -> torch.Tensor:
@@ -48,8 +48,11 @@ def _ncdhw(vols: np.ndarray, device) -> torch.Tensor:
 class Serve:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         self.cfg, self.mix, self.seed = cfg, mix, seed
+        self.family = family.of(cfg)
+        if mix["precision"] not in self.family.precisions:
+            raise ValueError(f"portbench: model family {cfg['model_type']!r} serves "
+                             f"{', '.join(self.family.precisions)}, not {mix['precision']!r}")
         self.dev = torch.device(device)
-        self.depth = cfg["model_depth"]
         self.shape = tuple(cfg["input_shape"])
         self.bs = cfg["batch_size"]
         self.int8 = mix["precision"] == "int8"
@@ -59,25 +62,16 @@ class Serve:
         calib = _ncdhw(self.pool[:mix["bn_calibration_volumes"]], self.dev)
         self.fold_sds = []
         for f in range(cfg["n_splits"]):
-            sd = inputs.init_weights(self.depth, cfg["in_channels"], cfg["nb_class"],
-                                     inputs.sub_seed(seed, "fold", f), self.dev)
-            inputs.trained_affine(sd, inputs.sub_seed(seed, "affine", f), self.dev)
             with _reference_precision():
-                inputs.calibrate_batchnorm(sd, calib, self.depth)
-            self.fold_sds.append(sd)
+                self.fold_sds.append(
+                    self.family.serving_weights(cfg, seed, f, calib, self.dev))
         del calib
         self.phases.append(("pool and fold weights made", time.perf_counter()))
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
             torch.cuda.reset_peak_memory_stats(self.dev)
-        generate_model, predictor = _program()
-        with self.dev:
-            template = generate_model(
-                model_type="resnet", model_depth=self.depth,
-                resnet_shortcut=cfg["resnet_shortcut"], nb_class=cfg["nb_class"],
-                dropout_rate=cfg["dropout_rate"], in_channels=cfg["in_channels"],
-                compute_dtype=_dtype(cfg["compute_dtype"]),
-                param_dtype=_dtype(cfg["param_dtype"]), s2d_stem=cfg["s2d_stem"])
+        predictor = _program()
+        template = self.family.program_model(cfg, self.dev)
         self.pred = predictor(template, self.fold_sds, batch_size=self.bs,
                               normalizer=cfg["normalizer"], device=self.dev)
         self.fold_sds = [{k: v.cpu() for k, v in sd.items()} for sd in self.fold_sds]
@@ -153,7 +147,7 @@ class Serve:
         _, a, b, _ = self.traced
         reqs = self.served[a:b]
         chunks = [min(self.bs, n - i) for _, n, _, _ in reqs for i in range(0, n, self.bs)]
-        return {**summary, "kind": "serve", "model": _model(self.cfg),
+        return {**summary, "kind": "serve", "model": self.family.describe(self.cfg),
                 "batch": self.bs,
                 "precision": self.mix["precision"],
                 # one K1 launch per chunk: (rows, distinct source rows,
@@ -173,24 +167,23 @@ class Serve:
 
     def reference_proba(self, levels: int | None = None) -> np.ndarray:
         """(pool, classes) fold-mean probabilities of the plain reference:
-        float32, or with `levels` the int8 model (127) or its 4-bit control
-        (7)."""
+        float32, or with `levels` the family's int8 model (127) or its 4-bit
+        control (7)."""
         acc = None
         with _reference_precision():
             for sd in self.fold_sds:
                 sd = {k: v.to(self.dev) for k, v in sd.items()}
-                if levels is not None:
-                    qp = ref_int8.export(sd, self.depth, levels)
+                if levels is None:
+                    forward = partial(self.family.reference_forward, sd, cfg=self.cfg)
+                else:
                     calib = _ncdhw(self.pool[:self.mix["calibration_volumes"]], self.dev)
-                    scales = ref_int8.scales(
-                        ref_int8.observe(qp, calib, self.depth), levels)
+                    forward = self.family.int8_forward(sd, calib, self.cfg, levels)
                     del calib
                 probs = []
                 for s in range(0, len(self.pool), self.bs):
                     x = _ncdhw(self.pool[s:s + self.bs], self.dev)
                     with torch.no_grad():
-                        logits = (ref.forward(sd, x, self.depth) if levels is None
-                                  else ref_int8.forward(qp, scales, x, self.depth, levels))
+                        logits = forward(x)
                     probs.append(torch.softmax(logits, dim=-1).double().cpu())
                 p = torch.cat(probs)
                 acc = p if acc is None else acc + p
@@ -220,13 +213,3 @@ class _reference_precision:
     def __exit__(self, *exc):
         b = torch.backends
         b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.benchmark = self.saved
-
-
-def _model(cfg: dict) -> dict:
-    """The published network's shape, as `lib/work.py` counts its work."""
-    return {"depth": cfg["model_depth"], "shape": tuple(cfg["input_shape"]),
-            "in_channels": cfg["in_channels"], "num_classes": cfg["nb_class"]}
-
-
-def _dtype(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]

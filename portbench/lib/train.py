@@ -25,10 +25,9 @@ import time
 import numpy as np
 import torch
 
-from portbench.lib import check, inputs, traffic
-from portbench.lib.serve import _dtype, _model, _reference_precision
+from portbench.lib import check, family, inputs, traffic
+from portbench.lib.serve import _reference_precision
 from portbench.reference import data as ref_data
-from portbench.reference import resnet3d as ref
 from portbench.reference import train as ref_train
 
 CHECKED_STEPS = 3
@@ -36,16 +35,15 @@ CHECKED_STEPS = 3
 
 def _program():
     from multimodal_ad_tpu_torch.data.device_cache import DeviceDataset, DeviceEpochIterator
-    from multimodal_ad_tpu_torch.models.resnet3d import generate_model
     from multimodal_ad_tpu_torch.train import cv, loop
-    return DeviceDataset, DeviceEpochIterator, generate_model, cv, loop
+    return DeviceDataset, DeviceEpochIterator, cv, loop
 
 
 class Train:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         self.cfg, self.mix, self.seed = cfg, mix, seed
+        self.family = family.of(cfg)
         self.dev = torch.device(device)
-        self.depth = cfg["model_depth"]
         self.shape = tuple(cfg["input_shape"])
         self.bs = cfg["batch_size"]
         self.phases = [("start", time.perf_counter())]
@@ -57,14 +55,13 @@ class Train:
         self.iter_seed = inputs.sub_seed(seed, "epochs")
         self.dropout_seed = inputs.sub_seed(seed, "dropout")
         self.weight_seed = inputs.sub_seed(seed, "weights")
-        sd0 = inputs.init_weights(self.depth, cfg["in_channels"], cfg["nb_class"],
-                                  self.weight_seed, self.dev)
+        sd0 = self.family.init_weights(cfg, self.weight_seed, self.dev)
         self.phases.append(("corpus and weights made", time.perf_counter()))
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
             torch.cuda.reset_peak_memory_stats(self.dev)
 
-        dataset, epoch_iter, generate_model, self.cv, self.loop = _program()
+        dataset, epoch_iter, self.cv, self.loop = _program()
         ds = dataset(corpus, self.labels, device=self.dev, quantize=mix["quantize"])
         self.loader_tr = epoch_iter(ds, self.train_idx, self.bs, shuffle=True,
                                     seed=self.iter_seed, augment=mix["augment"],
@@ -72,13 +69,7 @@ class Train:
         self.loader_vl = epoch_iter(ds, self.val_idx, self.bs, normalizer=cfg["normalizer"])
         self.batches_per_epoch = len(self.loader_tr)
         self.phases.append(("DeviceDataset built", time.perf_counter()))
-        with self.dev:
-            model = generate_model(
-                model_type="resnet", model_depth=self.depth,
-                resnet_shortcut=cfg["resnet_shortcut"], nb_class=cfg["nb_class"],
-                dropout_rate=cfg["dropout_rate"], in_channels=cfg["in_channels"],
-                compute_dtype=_dtype(cfg["compute_dtype"]),
-                param_dtype=_dtype(cfg["param_dtype"]), s2d_stem=cfg["s2d_stem"])
+        model = self.family.program_model(cfg, self.dev)
         model.load_state_dict(sd0)
         del sd0
         self.phases.append(("model built", time.perf_counter()))
@@ -190,7 +181,8 @@ class Train:
         program (see portbench/README.md)."""
         _, epochs, _ = self.traced
         launches = epochs * (len(self.loader_tr) + len(self.loader_vl))
-        return {**summary, "kind": "train", "model": _model(self.cfg), "batch": self.bs,
+        return {**summary, "kind": "train", "model": self.family.describe(self.cfg),
+                "batch": self.bs,
                 # one K1 launch a batch: (rows, distinct source rows, source
                 # bytes a voxel (the uint8 store), output bytes a voxel)
                 "k1_launches": [(self.bs, self.bs, 1, 4)] * launches,
@@ -216,13 +208,11 @@ class Train:
         catch)."""
         cfg, dev = self.cfg, self.dev
         with _reference_precision():
-            sd0 = inputs.init_weights(self.depth, cfg["in_channels"], cfg["nb_class"],
-                                      self.weight_seed, dev)
+            sd0 = self.family.init_weights(cfg, self.weight_seed, dev)
             rate = ref_train.epoch_schedule(cfg["lr"], cfg["num_epochs"], cfg["warmup_frac"],
                                             cfg["min_lr_factor"])
-            trainer = ref_train.Trainer(sd0, self.depth, torch.from_numpy(self.cw_host).to(dev),
-                                        rate, cfg["weight_decay"], cfg["grad_clip_norm"],
-                                        cfg["dropout_rate"], quant)
+            trainer = ref_train.Trainer(sd0, self.family, cfg,
+                                        torch.from_numpy(self.cw_host).to(dev), rate, quant)
             draws = ref_data.AugmentDraws(self.iter_seed)
             order = ref_data.epoch_order(self.train_idx, self.iter_seed, 0)
             drop = torch.Generator(device=dev).manual_seed(self.dropout_seed)
@@ -233,7 +223,7 @@ class Train:
             for k in range(CHECKED_STEPS):
                 idx = order[k * self.bs:(k + 1) * self.bs]
                 x = ref_data.augment(self._normalized(idx), draws.next(self.bs))
-                keep = torch.rand((self.bs, ref.fc_in(self.depth)), generator=drop,
+                keep = torch.rand((self.bs, self.family.dropout_width(cfg)), generator=drop,
                                   device=dev) >= cfg["dropout_rate"]
                 y = torch.from_numpy(self.labels[idx]).to(dev)
                 loss, g = trainer.step(x.unsqueeze(1), y, mask, keep)

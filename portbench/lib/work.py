@@ -1,18 +1,15 @@
 """The yardstick: published peaks of the card, and the operations and bytes
-the model and the kernels need, counted from shapes.
+the kernels need, counted from shapes; each model family
+(`portbench/families/`) counts its network's operations with these.
 
 Peaks are NVIDIA's H100 SXM data sheet, dense: bf16 989 TFLOP/s, int8
 1,979 TOP/s, float32 outside the tensor cores 67 TFLOP/s, HBM 3.35 TB/s.
 
 Convolution work counts only the (output voxel, tap) pairs whose tap lands
 inside the volume (a tap in the zero padding multiplies nothing), as
-`k3_work` below, copied from chip_smoke.py, does. The model's work is the
-published architecture's: the plain 7^3 stem whatever stem the program
-runs, so a change of implementation does not change the count."""
+`k3_work` below, copied from chip_smoke.py, does."""
 
 from __future__ import annotations
-
-from portbench.reference import resnet3d as ref
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
@@ -43,45 +40,6 @@ def k3_work(batch, grid, c_in, c_out, ksize, stride, dil):
     return 2.0 * batch * pairs * c_in * c_out, batch * read * c_in
 
 
-def conv_plan(depth: int, shape, in_channels: int = 1) -> list[dict]:
-    """Every convolution of the published network on one volume of
-    `shape`, in forward order: name, input grid, channels, kernel, stride,
-    dilation, the block's kind and whether it is the block's last conv."""
-    convs = [{"name": "stem", "grid": tuple(shape), "c_in": in_channels, "c_out": 64,
-              "k": 7, "stride": 2, "dil": 1, "pad": 3}]
-    g = tuple(out_size(n, 7, 2, 1) for n in shape)
-    g = tuple(out_size(n, 3, 2, 1) for n in g)  # the max pool
-    for blk in ref.block_plan(depth):
-        last = "conv2" if blk["kind"] == "basic" else "conv3"
-        gin, gcur = g, g
-        for name, cin, cout, k, stride, dil in blk["convs"]:
-            src = gin if name in ("conv1", "down") else gcur
-            convs.append({"name": f"{blk['prefix']}.{name}", "grid": src, "c_in": cin,
-                          "c_out": cout, "k": k, "stride": stride, "dil": dil,
-                          "kind": blk["kind"], "last": name == last,
-                          "down": name == "down"})
-            if name != "down":
-                gcur = tuple(out_size(n, k, stride, dil) for n in src)
-        g = gcur
-    return convs
-
-
-def forward_ops(depth: int, shape, in_channels: int = 1, num_classes: int = 2) -> dict:
-    """Operations of one volume's forward: {'stem', 'blocks', 'fc'}."""
-    ops = {"stem": 0.0, "blocks": 0.0, "fc": 2.0 * ref.fc_in(depth) * num_classes}
-    for c in conv_plan(depth, shape, in_channels):
-        if c["name"] == "stem":
-            n = 1
-            for s in c["grid"]:
-                n *= sum(1 for o in range(out_size(s, 7, 2, 1)) for t in range(7)
-                         if 0 <= o * 2 - 3 + t < s)
-            ops["stem"] += 2.0 * n * c["c_in"] * c["c_out"]
-        else:
-            ops["blocks"] += k3_work(1, c["grid"], c["c_in"], c["c_out"], c["k"],
-                                     c["stride"], c["dil"])[0]
-    return ops
-
-
 def least_forward_s(ops: dict, blocks_dtype: str = "bf16", fc_dtype: str = "bf16") -> float:
     """Least seconds of one forward's products at the peaks of the types
     they run in (the stem always bf16)."""
@@ -104,36 +62,6 @@ def k1_least_s(rows: int, distinct_rows: int, vox: int, src_bytes: int, out_byte
     k1_bound_ms, per launch)."""
     moved = distinct_rows * vox * src_bytes + rows * vox * out_bytes + rows * idx_bytes
     return max(moved / HBM_BYTES_PER_S, rows * vox * K1_OPS_PER_VOXEL / F32_OPS_PER_S)
-
-
-def k3_launches(depth: int, shape, batch: int) -> list[tuple]:
-    """K3's launches in one int8 forward at `batch`: (operations, input
-    bytes, M, N, K, output bytes per (M, N) element), in order. Epilogues:
-    a block's inner convs write int8, its shortcut conv float32, its last
-    conv reads the residual (float32 after a shortcut conv, else the bf16
-    identity) and writes bf16 h and, but in the last block, the next int8
-    quant point."""
-    plan = [c for c in conv_plan(depth, shape) if c["name"] != "stem"]
-    n_blocks = len(ref.block_plan(depth))
-    out, block = [], -1
-    has_down = {c["name"].rsplit(".", 1)[0] for c in plan if c["down"]}
-    for c in plan:
-        prefix = c["name"].rsplit(".", 1)[0]
-        if c["name"].endswith("conv1"):
-            block += 1
-        ops, in_bytes = k3_work(batch, c["grid"], c["c_in"], c["c_out"], c["k"],
-                                c["stride"], c["dil"])
-        m = batch
-        for s in c["grid"]:
-            m *= out_size(s, c["k"], c["stride"], c["dil"])
-        if c["down"]:
-            per = 4
-        elif c["last"]:
-            per = (4 if prefix in has_down else 2) + 2 + (1 if block < n_blocks - 1 else 0)
-        else:
-            per = 1
-        out.append((ops, in_bytes, m, c["c_out"], c["k"] ** 3 * c["c_in"], per))
-    return out
 
 
 def k3_least_s(ops, in_bytes, m, n, k, out_bytes) -> float:

@@ -3,6 +3,7 @@ class-weighted cross entropy, its gradients, the clip to a global norm,
 Adam with the weight decay added to the gradient, the warmup-cosine rate,
 and the eval-mode forward with its masked cross entropy.
 
+The forward is the model family's reference (`portbench/lib/family.py`).
 Each step returns what the check compares: the loss, each parameter's
 gradient as the optimizer gets it (clipped, plus the decay), and the
 parameters after the update. Imports neither JAX nor the program."""
@@ -13,8 +14,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-
-from portbench.reference import resnet3d as ref
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -46,22 +45,22 @@ def weighted_ce(logits, labels, weights, mask):
 
 
 class Trainer:
-    """Parameters (float32 leaves), running statistics and Adam's moments
-    of one fold, stepped in float32. `quant` puts the fp8 control's
-    rounding into every product (`portbench/reference/lowp.py`)."""
+    """Parameters (float32 leaves), buffers (running statistics, integer
+    tensors) and Adam's moments of one fold of configuration `cfg`, stepped
+    in float32 through its model family's reference forward. `quant` puts
+    the fp8 control's rounding into every product
+    (`portbench/reference/lowp.py`)."""
 
-    def __init__(self, sd: dict, depth: int, class_weights, schedule,
-                 weight_decay: float, clip_norm: float, dropout_p: float, quant=None):
-        self.depth = depth
+    def __init__(self, sd: dict, family, cfg: dict, class_weights, schedule, quant=None):
+        self.family, self.cfg = family, cfg
         self.params = {k: v.detach().clone().float().requires_grad_(True)
-                       for k, v in sd.items() if _is_param(k)}
-        self.buffers = {k: v.detach().clone() for k, v in sd.items() if not _is_param(k)}
+                       for k, v in sd.items() if _is_param(k, v)}
+        self.buffers = {k: v.detach().clone() for k, v in sd.items() if not _is_param(k, v)}
         self.m = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.v = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.cw = class_weights
         self.schedule = schedule
-        self.wd, self.clip = weight_decay, clip_norm
-        self.p_drop = dropout_p
+        self.wd, self.clip = cfg["weight_decay"], cfg["grad_clip_norm"]
         self.quant = quant
         self.count = 0
 
@@ -72,8 +71,9 @@ class Trainer:
         """One update on NCDHW float32 `x`. Returns (loss, {leaf: gradient
         as the optimizer gets it})."""
         stats = {}
-        logits = ref.forward(self._sd(), x, self.depth, train=True, dropout_keep=dropout_keep,
-                             dropout_p=self.p_drop, quant=self.quant, stats=stats)
+        logits = self.family.reference_forward(self._sd(), x, self.cfg, train=True,
+                                               dropout_keep=dropout_keep, stats=stats,
+                                               quant=self.quant)
         loss = weighted_ce(logits, labels, self.cw, mask)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[k] for k in names])
@@ -93,7 +93,7 @@ class Trainer:
                 mh = self.m[k] / (1 - b1 ** self.count)
                 vh = self.v[k] / (1 - b2 ** self.count)
                 p.sub_(lr * mh / (vh.sqrt() + ADAM_EPS))
-            ref.update_running_stats(self.buffers, stats)
+            self.family.update_running_stats(self.buffers, stats)
             for k in self.buffers:
                 if k.endswith("num_batches_tracked"):
                     self.buffers[k] = self.buffers[k] + 1
@@ -102,10 +102,10 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, x, labels, mask):
         """Eval-mode forward: (masked mean cross entropy, probabilities)."""
-        logits = ref.forward(self._sd(), x, self.depth, train=False, quant=self.quant)
+        logits = self.family.reference_forward(self._sd(), x, self.cfg, quant=self.quant)
         nll = -F.log_softmax(logits, dim=-1).gather(1, labels.long()[:, None])[:, 0]
         return float((nll * mask).sum() / mask.sum()), torch.softmax(logits, dim=-1)
 
 
-def _is_param(key: str) -> bool:
-    return not key.endswith(("running_mean", "running_var", "num_batches_tracked"))
+def _is_param(key: str, value: torch.Tensor) -> bool:
+    return value.is_floating_point() and not key.endswith(("running_mean", "running_var"))

@@ -22,7 +22,6 @@ import time
 T_START = time.perf_counter()  # set-up is timed from here
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -62,11 +61,9 @@ def find(entries, name, what):
 
 
 def reader(metric: str):
+    from portbench.lib.loading import load_file
     path = BENCH / "metrics" / f"{metric.split('.')[0]}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{path.stem}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(path, f"portbench_metric_{path.stem}").read
 
 
 def cell_metrics(manifest: dict, group: str, cell: str) -> list:

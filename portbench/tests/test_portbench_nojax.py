@@ -1,6 +1,8 @@
 """Nothing the benchmark loads is JAX, a JAX library or the JAX package:
 each loaded module's top-level name compared whole (the port's own name
-begins with the JAX package's)."""
+begins with the JAX package's). The probe loads every module of the
+harness, every reader and every model family, and builds each family's
+program model."""
 
 import subprocess
 import sys
@@ -8,20 +10,28 @@ import sys
 from portbench_tiny import ROOT
 
 PROBE = r"""
-import importlib, pathlib, sys
+import importlib, json, pathlib, sys
 sys.path.insert(0, {root!r})
 sys.argv = ["run.py"]
 import portbench.run as run
 for mod in ("portbench.lib.serve", "portbench.lib.train", "portbench.lib.trace",
             "portbench.lib.work", "portbench.lib.check", "portbench.lib.traffic",
-            "portbench.lib.inputs", "portbench.reference.resnet3d",
+            "portbench.lib.inputs", "portbench.lib.family", "portbench.reference.resnet3d",
             "portbench.reference.int8", "portbench.reference.train",
             "portbench.reference.data", "portbench.reference.lowp", "portbench.calibrate"):
     importlib.import_module(mod)
 for path in sorted(pathlib.Path({root!r}, "portbench", "metrics").glob("*.py")):
     run.reader(path.stem)
-from portbench.lib import serve, train
+from portbench.lib import family, serve, train
 serve._program(); train._program()
+configs = [json.loads(p.read_text())
+           for p in sorted(pathlib.Path({root!r}, "portbench", "configs").glob("*.json"))]
+for path in sorted(pathlib.Path({root!r}, "portbench", "families").glob("*.py")):
+    fam = family.load(path.stem)
+    for cfg in configs:
+        if cfg["model_type"] == path.stem:  # the port's model, through the family
+            fam.program_model({{**cfg, "input_shape": [8, 8, 8]}}, "cpu")
+            break
 print("found=" + ",".join(run.forbidden_modules()))
 """
 

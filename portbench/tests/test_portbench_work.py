@@ -7,8 +7,15 @@ import torch
 import torch.nn.functional as F
 
 import portbench_tiny  # noqa: F401  (puts the repository on the path)
-from portbench.lib import work
+from portbench.lib import family, work
 from portbench.reference import resnet3d as ref
+
+RESNET = family.load("resnet")
+
+
+def _resnet(depth, shape):
+    return {"type": "resnet", "depth": depth, "shape": shape, "in_channels": 1,
+            "num_classes": 2}
 
 
 def _pairs_by_conv(grid, k, stride, dil):
@@ -36,7 +43,7 @@ def test_model_work_against_a_hand_count():
     """ResNet-10 on a 10^3 volume: every conv's pairs counted by convolving
     ones, walked through the network's shapes by hand."""
     shape = (10, 10, 10)
-    ops = work.forward_ops(10, shape)
+    ops = RESNET.forward_ops(_resnet(10, shape))
     stem = 2 * 1 * 64 * _pairs_by_conv(shape, 7, 2, 1)
     assert ops["stem"] == stem
     g = (5, 5, 5)          # stem: 10 -> 5
@@ -65,7 +72,7 @@ def test_training_counts_two_backward_products_and_no_stem_input_gradient():
 
 @pytest.mark.parametrize("depth", [18, 50])
 def test_k3_launches_are_the_int8_forwards_convs(depth):
-    launches = work.k3_launches(depth, (91, 109, 91), 8)
+    launches = RESNET.k3_launches(depth, (91, 109, 91), 8)
     convs = sum(len(b["convs"]) for b in ref.block_plan(depth))
     assert len(launches) == convs == (19 if depth == 18 else 16 * 3 + 4)
 
@@ -75,7 +82,7 @@ def test_k3_epilogue_bytes_of_resnet18():
     float32 (4); a last conv reads its residual (float32 after a shortcut,
     else bf16), writes bf16 h and, but in the last block, the int8 quant
     point."""
-    per = Counter(ln[5] for ln in work.k3_launches(18, (91, 109, 91), 8))
+    per = Counter(ln[5] for ln in RESNET.k3_launches(18, (91, 109, 91), 8))
     assert per == {1: 8, 4: 3 + 1, 5: 4, 7: 3}
 
 
@@ -87,29 +94,26 @@ def test_a_roofline_share_never_passes_its_bound():
 
 
 def _reader(name):
-    import importlib.util
-    path = portbench_tiny.ROOT / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"reader_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    from portbench import run
+    return run.reader(name)
 
 
 def test_readers_take_their_work_from_the_shapes_the_drivers_pass():
     """Each reader works out its own least time from the traced work's
     shapes: a kernel at exactly its least time reads 100 %."""
-    model = {"depth": 18, "shape": (20, 24, 20), "in_channels": 1, "num_classes": 2}
+    model = _resnet(18, (20, 24, 20))
     vox = 20 * 24 * 20
     k1 = [(8, 5, 4, 2), (8, 8, 4, 2)]
     k1_s = sum(work.k1_least_s(r, d, vox, s, o, 8) for r, d, s, o in k1)
-    k3_s = 3 * sum(work.k3_least_s(*launch) for launch in work.k3_launches(18, (20, 24, 20), 8))
-    ops = work.forward_ops(18, (20, 24, 20))
+    k3_s = 3 * sum(work.k3_least_s(*launch)
+                   for launch in RESNET.k3_launches(18, (20, 24, 20), 8))
+    ops = RESNET.forward_ops(model)
     ctx = {"kind": "serve", "model": model, "batch": 8, "precision": "int8", "forwards": 3,
            "k1_launches": k1, "volumes_forward": 13, "request_s": 13 * work.least_forward_s(
                ops, "int8", "f32"),
            "kernel_s": {"gather_normalize_kernel": k1_s, "conv_i8_kernel<256, 3>": k3_s},
            "kernel_n": {"gather_normalize_kernel": 2,
-                        "conv_i8_kernel<256, 3>": 3 * len(work.k3_launches(18, (20, 24, 20), 1))}}
+                        "conv_i8_kernel<256, 3>": 3 * len(RESNET.k3_launches(18, (20, 24, 20), 1))}}
     assert _reader("k1_roofline")(ctx) == pytest.approx(100.0)
     assert _reader("k3_roofline")(ctx) == pytest.approx(100.0)
     assert _reader("serve_mfu")(ctx) == pytest.approx(100.0)
